@@ -7,7 +7,7 @@ through the full pipeline — tracking + sliding-window BA + feedback, with
 optional per-sequence IMU fusion and loop closing — as ONE device program
 per chunk (parallel.multiseq_loop.MultiSeqSlam).  Reports per-sequence ATE
 and aggregate frames/s.  The reference runs one ROS process per rosbag
-(SURVEY.md §2.3); this is the TPU-native equivalent of launching them all.
+(SURVEY.md §2.3); this is the equivalent of launching them all at once.
 
 Usage:
   python examples/run_multiseq.py --cpu --seqs 4 --frames 16
@@ -76,7 +76,7 @@ def main():
                                 min_distance=12.0, margin=22,
                                 kf_min_trans=0.04),
         backend=BackendConfig(window_size=5, max_landmarks=256,
-                              iters1=8, iters2=4, pallas_schur=False),
+                              iters1=8, iters2=4),
         loop=LoopConfig(max_keyframes=64, num_orb_features=128,
                         vocab_words=128, kf_start=10, kf_dist=8,
                         kf_max_dist=64, nkf_closest=2, min_pts=12,

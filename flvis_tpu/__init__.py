@@ -1,6 +1,6 @@
-"""flvis_tpu — a TPU-native stereo visual-inertial SLAM engine.
+"""flvis_tpu — a stereo visual-inertial SLAM engine in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of FLVIS
+A from-scratch JAX/XLA re-design of the capabilities of FLVIS
 (HKPolyU-UAV/FLVIS, C++/ROS reference at /root/reference): feature-tracking
 visual odometry frontend, IMU feedforward/feedback fusion, sliding-window
 bundle adjustment, and bag-of-words loop closure with pose-graph optimization.
@@ -12,7 +12,7 @@ Architecture (not a port):
   - g2o is replaced by a JAX Levenberg-Marquardt engine with analytic
     Jacobians and a Schur complement over landmark blocks.
   - The ROS nodelet pipeline is replaced by a single-controller async
-    dispatch pipeline; multi-chip scaling via jax.sharding meshes.
+    dispatch pipeline; multi-device scaling via jax.sharding meshes.
 """
 
 __version__ = "0.1.0"

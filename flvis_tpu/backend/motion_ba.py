@@ -1,6 +1,6 @@
 """Motion-only bundle adjustment: robust single-pose Levenberg-Marquardt.
 
-TPU-native replacement for the reference's OptimizeInFrame
+Array-native replacement for the reference's OptimizeInFrame
 (/root/reference/src/processing/optimize_in_frame.cpp:10-91): a g2o bundle of
 one VertexSE3Expmap pose, fixed VertexSBAPointXYZ landmarks, and
 EdgeSE3ProjectXYZ reprojection edges with a Huber kernel, run as
@@ -57,7 +57,7 @@ def _residuals_jacobians(cam: StereoCamera, T: SE3, pts_w, uv_obs):
     # d(p_c)/d(xi) = [I | -hat(p_c)]: (N, 3, 6)
     I = jnp.broadcast_to(jnp.eye(3), p_c.shape[:-1] + (3, 3))
     dp = jnp.concatenate([I, -so3.hat(p_c)], axis=-1)
-    J = duv @ dp  # (N, 2, 6)
+    J = jnp.matmul(duv, dp, precision="highest")  # (N, 2, 6)
     behind = p_c[:, 2] <= 0.05
     return r, J, behind
 
@@ -71,10 +71,10 @@ def _huber_weight(r2, delta):
 def _qr_solve6(A, b):
     """Least-squares solve of a tall (M, 6) system via unrolled CGS2 QR.
 
-    jnp.linalg.lstsq lowers to an iterative SVD on TPU — far too slow for a
+    jnp.linalg.lstsq lowers to an iterative SVD — far too slow for a
     6-column system inside the per-frame loop.  Classical Gram-Schmidt with
     one reorthogonalization pass is 6 statically-unrolled column steps of
-    pure VPU dot products, and its loss of orthogonality is O(eps·cond(A)),
+    dot products, and its loss of orthogonality is O(eps·cond(A)),
     equivalent to Householder for the conditioning this solver faces
     (cond(J) ≲ 1e3 by design — see the damping note below)."""
     q_cols = []
@@ -94,11 +94,12 @@ def _qr_solve6(A, b):
     Q = jnp.stack(q_cols, axis=1)                      # (M, 6)
     R = jnp.stack(r_rows, axis=1)                      # (6, 6) upper-triangular
     # (r_rows[j] holds column j's projections onto q_0..q_j, i.e. R[:, j].)
-    y = Q.T @ b
+    y = jnp.matmul(Q.T, b, precision="highest")
     # Back-substitution, unrolled.
     x = jnp.zeros((6,), A.dtype)
     for j in range(5, -1, -1):
-        x = x.at[j].set((y[j] - jnp.dot(R[j], x)) / R[j, j])
+        x = x.at[j].set((y[j] - jnp.dot(R[j], x, precision="highest"))
+                        / R[j, j])
     return x
 
 
@@ -126,8 +127,9 @@ def _lm_iterations(cam, T, pts_w, uv_obs, active, iters: int, huber_delta, lam0)
         # (and t_y/ω_x) directions nearly parallel, cond(H) = cond(J)² can
         # reach ~1e6, and an f32 normal-equation solve then corrupts the GN
         # step badly enough that LM settles into a rotation-only basin with
-        # 3× the residual of the true pose.  TPU has no f64; factoring J
-        # keeps the conditioning at cond(J) ≈ 1e3, well within f32.
+        # 3× the residual of the true pose.  The solver runs in f32;
+        # factoring J keeps the conditioning at cond(J) ≈ 1e3, well within
+        # f32.
         sw = jnp.sqrt(w)[:, None]
         Jw = (J * sw[..., None]).reshape(-1, 6)
         rw = (r * sw).reshape(-1)

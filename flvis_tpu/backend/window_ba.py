@@ -1,6 +1,6 @@
 """Sliding-window structure-and-motion bundle adjustment.
 
-TPU-native replacement for the reference's LocalMapNodeletClass + PoseLMBag +
+Array-native replacement for the reference's LocalMapNodeletClass + PoseLMBag +
 g2o (/root/reference/src/backend/vo_localmap.cpp:87-380, poselmbag.cpp:5-208):
 a window of `window_size` keyframe poses (default 10, oldest fixed) and the
 landmarks they observe, optimized with Levenberg-Marquardt where landmark
@@ -16,8 +16,7 @@ Data layout (all fixed shape, lives on device):
                      observation count drops to zero are freed (the
                      refcounting of addLMObservation/removeLMObservation)
   obs        (W, L)  dense masked observation matrix (uv + valid).  W·L is
-                     small (10×1024), so dense-masked beats sparse indexing
-                     on TPU by a mile.
+                     small (10×1024), so dense-masked beats sparse indexing.
 
 The LM schedule mirrors the reference: optimize(12) → cull chi²>thr edges →
 optimize(8) (vo_localmap.cpp:292-319), then export the newest pose, the
@@ -229,12 +228,8 @@ def add_keyframe(cfg: BackendConfig, state: WindowState, kf: KeyframePacket,
 
 # --- L-LAST LAYOUT --------------------------------------------------------
 # All per-landmark tensors below keep the landmark axis LAST, so L (the only
-# large dimension) rides the TPU lane dimension.  The natural (W, L, 3, 6)
-# layout puts 3- and 6-sized axes in the (8, 128) tile — ~95 % of every
-# vector register and HBM burst is padding, and the whole solver runs ~4×
-# slower (measured: cost scaled linearly with the L slot count while W
-# barely mattered).  Einsums contract over `l`, mapping onto the MXU with a
-# 1024-deep contraction instead of batches of 3×6 confetti.
+# large dimension) is the contiguous, vectorised one and einsums contract
+# over a 1024-deep `l` instead of batches of 3×6 blocks.
 
 
 def _residuals(cam: StereoCamera, poses: SE3, lm_pw, obs_uv, obs_ur, ur_valid):
@@ -310,8 +305,8 @@ def _total_cost(r, w_mask, delta):
 
 
 def _sym3_inv(H):
-    """Closed-form inverse of symmetric (3, 3, L) blocks — pure lane-wise
-    VPU arithmetic (jnp.linalg.inv would run a batched LU over L tiny
+    """Closed-form inverse of symmetric (3, 3, L) blocks — pure elementwise
+    arithmetic over L (jnp.linalg.inv would run a batched LU over L tiny
     matrices)."""
     a, b, c = H[0, 0], H[0, 1], H[0, 2]
     d, e, f = H[1, 1], H[1, 2], H[2, 2]
@@ -329,47 +324,16 @@ def _sym3_inv(H):
     return jnp.stack([row0, row1, row2]) * idet
 
 
-_PALLAS_SCHUR = True    # module switch, overridable in tests
-
-
-def _schur_kernel_enabled() -> bool:
-    # The fused kernel runs compiled on real TPUs only; CPU runs keep the
-    # XLA path (the kernel's interpret mode exists for parity tests, which
-    # monkeypatch this gate).
-    return _PALLAS_SCHUR and jax.default_backend() == "tpu"
-
-
 def _schur_step(cam, poses: SE3, lm_pw, obs, w_mask, fixed_pose, lam, delta,
-                axis_name=None, use_kernel: bool = True):
+                axis_name=None):
     """One damped Schur-complement LM step.  Returns (new_poses, new_lm_pw).
 
-    On a single TPU device the whole step runs as ONE fused Pallas kernel
-    (ops/pallas/schur.py) — the XLA op-by-op path below costs ~0.72 ms per
-    iteration in per-op dispatch latency alone.  With `axis_name`, the
-    landmark dimension is assumed sharded over that mesh axis (shard_map):
-    landmark blocks (Hll, A, bl, dl) stay local to each device, while the
-    small pose-system partial sums (Hpp, S_red, bp — all (W,6,·)-sized) are
-    reduced with psum over ICI; the psum points interleave the partial sums,
-    so the sharded path keeps the XLA implementation.  This distributed
-    bundle adjustment is something the reference cannot do (g2o is single
+    With `axis_name`, the landmark dimension is assumed sharded over that
+    mesh axis (shard_map): landmark blocks (Hll, A, bl, dl) stay local to
+    each device, while the small pose-system partial sums (Hpp, S_red, bp —
+    all (W,6,·)-sized) are reduced with psum.  This distributed bundle
+    adjustment is something the reference cannot do (g2o is single
     threaded per window)."""
-    if (axis_name is None and use_kernel and poses.q.shape[0] <= 16
-            and _schur_kernel_enabled()):
-        from ..ops.pallas.schur import schur_step_kernel
-
-        obs_uv, obs_ur, ur_valid = obs
-        W, L = w_mask.shape
-        R = so3.to_matrix(poses.q).reshape(W, 9)
-        obs3 = jnp.stack(
-            [obs_uv[..., 0], obs_uv[..., 1], obs_ur], axis=1).reshape(3 * W, L)
-        cam_row = jnp.stack([cam.fx, cam.fy, cam.cx, cam.cy,
-                             cam.fx * cam.baseline])
-        dp, dl = schur_step_kernel(
-            R, poses.t, lm_pw.T, obs3,
-            ur_valid.astype(jnp.float32), w_mask.astype(jnp.float32),
-            fixed_pose.astype(jnp.float32), cam_row,
-            jnp.asarray(lam, jnp.float32), delta=float(delta))
-        return se3m.retract_left(poses, dp), lm_pw + dl.T
     obs_uv, obs_ur, ur_valid = obs
     def reduce(x):
         return jax.lax.psum(x, axis_name) if axis_name else x
@@ -383,7 +347,8 @@ def _schur_step(cam, poses: SE3, lm_pw, obs, w_mask, fixed_pose, lam, delta,
     Jp = jnp.where(fixed_pose[:, None, None, None], 0.0, Jp)
 
     # precision="highest": these normal-equation products are the numerical
-    # backbone of the solver; TPU's default bf16 matmul path is not enough.
+    # backbone of the solver; a reduced-precision (TF32/bf16) pass is not
+    # enough.
     hp = dict(precision="highest")
     Jpw = Jp * wgt[:, None, None, :]
     Hpp = reduce(jnp.einsum("wakl,waml->wkm", Jpw, Jp, **hp))          # (W, 6, 6)
@@ -416,11 +381,6 @@ def _schur_step(cam, poses: SE3, lm_pw, obs, w_mask, fixed_pose, lam, delta,
     S = S + jnp.diag(jnp.where(fixmat, 1.0, 1e-9))
     rhs = jnp.where(fixed_pose[:, None], 0.0, rhs)
 
-    # jnp.linalg.solve measures ~390 µs here (sequential LU lowering), over
-    # half the per-iteration cost — but it still beats a statically-unrolled
-    # block elimination in plain XLA (ops/linalg.block_spd_solve: 110 small
-    # stacked matmuls, 20.1 vs 14.4 ms/keyframe end to end), because per-op
-    # dispatch latency dominates both.  Revisit only inside a fused kernel.
     dp = jnp.linalg.solve(S, rhs.reshape(-1)).reshape(W, 6)
 
     # Back-substitute landmarks.
@@ -432,13 +392,13 @@ def _schur_step(cam, poses: SE3, lm_pw, obs, w_mask, fixed_pose, lam, delta,
 
 
 def _lm_loop(cam, poses, lm_pw, obs, w_mask, fixed_pose, iters: int, delta,
-             axis_name=None, use_kernel: bool = True):
+             axis_name=None):
     obs_uv, obs_ur, ur_valid = obs
 
     def body(carry):
         it, poses, lm_pw, lam, cost, _ = carry
         new_poses, new_lm = _schur_step(cam, poses, lm_pw, obs, w_mask, fixed_pose,
-                                        lam, delta, axis_name, use_kernel)
+                                        lam, delta, axis_name)
         r, _ = _residuals(cam, new_poses, new_lm, obs_uv, obs_ur, ur_valid)
         new_cost = _total_cost(r, w_mask, delta)
         if axis_name:
@@ -450,7 +410,7 @@ def _lm_loop(cam, poses, lm_pw, obs, w_mask, fixed_pose, iters: int, delta,
         # Converged: an ACCEPTED step improved the cost by < 1e-5 relative —
         # the same "chi² stopped moving" criterion g2o's optimize(N) uses to
         # return before N iterations; each remaining iteration would pay a
-        # full Schur solve (~0.7 ms) for noise-level gains.
+        # full Schur solve for noise-level gains.
         done = better & (cost - new_cost < 1e-5 * cost)
         cost = jnp.where(better, new_cost, cost)
         return it + 1, poses, lm_pw, lam, cost, done
@@ -493,17 +453,6 @@ def optimize(cfg: BackendConfig, cam: StereoCamera, state: WindowState,
     poses = state.poses()
     w_mask = state.obs_valid & state.kf_valid[:, None] & state.lm_valid[None, :]
 
-    use_kernel = cfg.pallas_schur and axis_name is None
-    if use_kernel and cfg.window_size > 16 and _schur_kernel_enabled():
-        import warnings
-
-        warnings.warn(
-            f"window_size={cfg.window_size} > 16: the fused Pallas Schur "
-            "kernel only supports windows of <= 16 poses; falling back to "
-            "the ~4x slower XLA step (set BackendConfig.pallas_schur=False "
-            "to silence)", RuntimeWarning, stacklevel=2)
-        use_kernel = False
-
     # Oldest valid KF is the gauge anchor (vo_localmap.cpp:159-162).
     fid = jnp.where(state.kf_valid, state.kf_frame_id, jnp.iinfo(jnp.int32).max)
     fixed_pose = jnp.arange(state.window) == jnp.argmin(fid)
@@ -512,7 +461,7 @@ def optimize(cfg: BackendConfig, cam: StereoCamera, state: WindowState,
     # Phase 1.
     poses1, lm1, _ = _lm_loop(cam, poses, state.lm_pw, obs, w_mask,
                               fixed_pose, cfg.iters1, cfg.huber_delta,
-                              axis_name=axis_name, use_kernel=use_kernel)
+                              axis_name=axis_name)
     # Edge cull: chi² > thr (vo_localmap.cpp:292-319).
     r1, _ = _residuals(cam, poses1, lm1, *obs)
     chi2 = jnp.sum(r1 * r1, axis=1)                       # (W, L)
@@ -521,7 +470,7 @@ def optimize(cfg: BackendConfig, cam: StereoCamera, state: WindowState,
     obs2 = (state.obs_uv, state.obs_ur, state.obs_ur_valid & w_mask2)
     poses2, lm2, cost = _lm_loop(cam, poses1, lm1, obs2, w_mask2,
                                  fixed_pose, cfg.iters2, cfg.huber_delta,
-                                 axis_name=axis_name, use_kernel=use_kernel)
+                                 axis_name=axis_name)
 
     ready = state.count >= 3
     poses_out = jax.tree.map(lambda a, b: jnp.where(ready, b, a), poses, poses2)

@@ -1,4 +1,4 @@
-"""Configuration for the TPU-native SLAM engine.
+"""Configuration for the SLAM engine.
 
 Mirrors the reference's single-YAML parameter surface (read through
 /root/reference/src/utils/include/yamlRead.h; full parameter list inventoried
@@ -56,8 +56,8 @@ class FrontendConfig:
     lk_radius: int = 7
     # 6 GN iterations: points still moving after 6 shift by <0.2 px (below
     # the pose noise floor) and the sequential GN chain is the frontend's
-    # dominant TPU latency (tools/sweep_operating_point.py: equal-or-better
-    # ATE vs 10 iterations at EuRoC scale).
+    # longest dependency chain (equal-or-better synthetic ATE vs 10
+    # iterations at EuRoC scale).
     lk_iters: int = 6
     lk_min_eig: float = 1e-4
 
@@ -96,6 +96,14 @@ class FrontendConfig:
     equalize: bool = False
 
 
+
+def bench_frontend_config() -> FrontendConfig:
+    """The EuRoC operating point that bench.py and chip_smoke.py run:
+    752×480, 256 landmark slots, 3 pyramid levels, a 21×21 LK window."""
+    return FrontendConfig(width=752, height=480, num_slots=256,
+                          pyramid_levels=3, per_cell=16, min_distance=15.0,
+                          margin=20, lk_radius=10, lk_iters=6)
+
 @dataclasses.dataclass(frozen=True)
 class VioConfig:
     """VIMOTION parameters (vifusion_para1..6, vo_tracking.cpp:116-124)."""
@@ -122,11 +130,6 @@ class BackendConfig:
     iters2: int = 8                     # → cull chi²>3 → optimize(8)
     chi2_cull: float = 9.0
     huber_delta: float = 2.0
-    # Fused Pallas Schur-step kernel (ops/pallas/schur.py): used on real TPUs
-    # for window_size ≤ 16 (larger windows fall back to the XLA path with a
-    # loud warning — see window_ba.optimize).  Disable for vmapped/batched
-    # windows (multi-sequence DP), where the kernel's batching is unproven.
-    pallas_schur: bool = True
 
 
 @dataclasses.dataclass(frozen=True)

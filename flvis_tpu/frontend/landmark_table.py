@@ -1,6 +1,6 @@
 """Fixed-capacity structure-of-arrays landmark table.
 
-TPU-native replacement for the reference's `vector<LandMarkInFrame>` inside
+Array-native replacement for the reference's `vector<LandMarkInFrame>` inside
 CameraFrame (/root/reference/src/processing/camera_frame.h:11-83,
 landmark.h:8-36).  The reference mutates a dynamically-sized vector per frame
 (erase outliers, push new detections); here the table has a static number of

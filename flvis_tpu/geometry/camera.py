@@ -1,12 +1,12 @@
 """Pinhole / rectified-stereo camera model.
 
-TPU-native replacement for the reference's DepthCamera
+Array-native replacement for the reference's DepthCamera
 (/root/reference/src/processing/depth_camera.cpp:6-149,
 include/depth_camera.h:15-76) which holds raw+rectified intrinsics,
 distortion, rectification matrices, the stereo extrinsic T_cam0_cam1 and the
 depth scale factor, plus static world↔camera↔pixel projection helpers.
 
-Design difference (deliberate, TPU-first): distortion removal and stereo
+Design difference (deliberate): distortion removal and stereo
 rectification are *host-side preprocessing* done once per image by the
 dataset drivers (flvis_tpu.io.rectify) — the device-side model is always an
 ideal rectified pinhole pair.  That keeps every on-device projection a pure

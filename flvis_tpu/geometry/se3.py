@@ -1,6 +1,6 @@
 """Batched SE(3) rigid transforms as (quaternion, translation) array pairs.
 
-TPU-native replacement for the vendored Sophus SE3 class
+Array-native replacement for the vendored Sophus SE3 class
 (/root/reference/3rdPartLib/Sophus/sophus/se3.h) which the reference uses as
 its universal pose type (`T_c_w`, `T_c_c1`, ... — see
 /root/reference/src/utils/include/common.h:18-27).

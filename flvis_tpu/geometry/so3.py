@@ -1,6 +1,6 @@
 """Batched SO(3) on unit quaternions.
 
-TPU-native replacement for the vendored Sophus SO3 type used throughout the
+Array-native replacement for the vendored Sophus SO3 type used throughout the
 reference (cf. /root/reference/src/utils/include/common.h:18-27 and
 3rdPartLib/Sophus/sophus/so3.h).  Instead of a C++ class holding a single
 rotation, every function here is a pure JAX function broadcasting over

@@ -1,6 +1,6 @@
 """Batched two-view triangulation.
 
-TPU-native replacement for the reference's Triangulation static class
+Array-native replacement for the reference's Triangulation static class
 (/root/reference/src/processing/triangulation.cpp:9-119), which builds a 4×4
 DLT matrix from two projection matrices and takes the null vector via
 JacobiSVD *per point in a loop*.  Here the whole landmark table is
@@ -89,8 +89,7 @@ def triangulate_midpoint(T_c0_w: SE3, T_c1_w: SE3, xn0, xn1,
     Same contract as triangulate_from_views (pts in the FIRST camera's
     frame, cheirality+range validity) but solves the 2x2 closest-point
     system between the two viewing rays instead of the 4x4 DLT
-    eigendecomposition — the eigh lowers to an iterative algorithm on TPU
-    and dominated the hot path; the midpoint form is a handful of fused
+    eigendecomposition — the eigh lowers to an iterative algorithm; the midpoint form is a handful of fused
     elementwise ops with equivalent accuracy for well-conditioned two-view
     geometry (degenerate near-parallel rays are gated out either way).
 

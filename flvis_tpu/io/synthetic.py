@@ -2,7 +2,7 @@
 
 The reference validates only by replaying recorded datasets (EuRoC/KITTI
 rosbags — see SURVEY.md §4); it ships no unit or synthetic tests.  This
-module provides what the TPU build needs instead: procedurally textured
+module provides what this engine needs instead: procedurally textured
 images with exactly known ground-truth camera trajectories, depth maps and
 stereo pairs, so every kernel and the whole pipeline can be verified against
 closed-form truth without dataset downloads.

@@ -1,6 +1,6 @@
 """Pose-graph optimization on SE(3) — batched Levenberg-Marquardt.
 
-TPU-native replacement for the reference's g2o pose graph
+Array-native replacement for the reference's g2o pose graph
 (loopClosureOnCovGraphG2ONew, /root/reference/src/backend/
 vo_loopclosing.cpp:742-944): VertexSE3 nodes for every keyframe, sequential
 EdgeSE3 constraints to the next 5 successors with a Cauchy robust kernel,
@@ -145,8 +145,8 @@ def _lm_outer_loop(linearize, solve, total_cost, nodes0: SE3, lam0: float,
     step improves the cost by < 1e-4 relative, OR after 2 consecutive
     REJECTED steps — a converged LM mostly rejects (no step can improve),
     so an accept-only criterion never fires and the loop burns the full
-    iteration cap re-solving a finished problem (measured: the 2048-node
-    bench graph converges by iteration ~4 but ran all 15 at ~22 ms each).
+    iteration cap re-solving a finished problem (the 2048-node bench graph
+    converges by iteration ~4 of 15).
     This is the "chi² stopped moving" behaviour of g2o's optimize(N).
 
     The rejection exit only fires after at least one ACCEPTED step (or once
@@ -220,18 +220,17 @@ def _lm_outer_loop(linearize, solve, total_cost, nodes0: SE3, lam0: float,
 # consecutive poses into one 96-dof super-node makes the banded part exactly
 # BLOCK-TRIDIAGONAL (any edge with span ≤ super couples adjacent super-nodes
 # only), which a lax.scan Thomas elimination factors in O(K) with fixed
-# shapes — the TPU-idiomatic sequential-but-compiled pattern.  Loop edges
+# shapes — a sequential but compiled pattern.  Loop edges
 # enter as a rank-6L Woodbury correction:
 #     H = B + U Uᵀ,   H⁻¹b = B⁻¹b − B⁻¹U (I + UᵀB⁻¹U)⁻¹ UᵀB⁻¹b
 # so one multi-RHS Thomas solve against [b, U] plus a small (6L, 6L) dense
 # solve replaces the dense factorization.  Memory is O(K·super·36 + K·6·6L).
 # ---------------------------------------------------------------------------
 
-# Poses per super-node; must be ≥ the max sequential-edge span (5).  16 was
-# measured faster than 8 at 2048 nodes: the Thomas scan is a SEQUENTIAL
-# chain of small LU solves, so halving the super-node count (256 → 128
-# steps) wins more than the 2× bigger (96, 96) blocks cost — the blocks are
-# still far below the TPU's latency/FLOP crossover.
+# Poses per super-node; must be ≥ the max sequential-edge span (5).  The
+# Thomas scan is a SEQUENTIAL chain of small LU solves, so 16 halves the
+# step count of 8 (256 → 128 at 2048 nodes) for 2× bigger (96, 96) blocks,
+# which are still small.
 _SUPER = 16
 
 
@@ -250,8 +249,8 @@ def _thomas_solve(D, U, X):
         D_next, U_g, X_next = inp
         sol = jnp.linalg.solve(Dt_g, jnp.concatenate([U_g, X_g], axis=1))
         C_g, Y_g = sol[:, :S], sol[:, S:]
-        Dt_next = D_next - U_g.T @ C_g
-        Xn = X_next - U_g.T @ Y_g
+        Dt_next = D_next - jnp.matmul(U_g.T, C_g, precision="highest")
+        Xn = X_next - jnp.matmul(U_g.T, Y_g, precision="highest")
         return (Dt_next, Xn), (C_g, Y_g)
 
     (Dt_last, X_last), (C, Y) = jax.lax.scan(
@@ -260,7 +259,7 @@ def _thomas_solve(D, U, X):
 
     def bwd(sol_next, inp):
         C_g, Y_g = inp
-        sol_g = Y_g - C_g @ sol_next
+        sol_g = Y_g - jnp.matmul(C_g, sol_next, precision="highest")
         return sol_g, sol_g
 
     _, sols = jax.lax.scan(bwd, Y_last, (C, Y), reverse=True)
@@ -383,9 +382,9 @@ def optimize_banded(graph: PoseGraph, fixed_mask, band_edges: int,
         Z = _thomas_solve(D, U, X.reshape(G, S, N)).reshape(K * 6, N)
         z_b, Z_u = Z[:, 0], Z[:, 1:]
         Uf = Uw.reshape(K * 6, Lp * 6)
-        M = jnp.eye(Lp * 6) + Uf.T @ Z_u
-        y = jnp.linalg.solve(M, Uf.T @ z_b)
-        dx = (z_b - Z_u @ y).reshape(K, 6)
+        M = jnp.eye(Lp * 6) + jnp.matmul(Uf.T, Z_u, precision="highest")
+        y = jnp.linalg.solve(M, jnp.matmul(Uf.T, z_b, precision="highest"))
+        dx = (z_b - jnp.matmul(Z_u, y, precision="highest")).reshape(K, 6)
         dx = jnp.where(held[:, None], 0.0, dx)
         return se3m.compose(nodes, se3m.exp(dx)), jnp.max(jnp.abs(dx))
 

@@ -1,6 +1,6 @@
 """Grid-bucketed Shi-Tomasi corner detection.
 
-TPU-native replacement for the reference's FeatureDEM
+Array-native replacement for the reference's FeatureDEM
 (/root/reference/src/processing/feature_dem.cpp: detect 215-266, redetect
 124-213, calHarrisR 59-88): cv::goodFeaturesToTrack over the whole image,
 features binned into a 4×4 grid of cells (16 regions,
@@ -53,7 +53,7 @@ def shi_tomasi_response(img, block_radius: int = 1):
 
 def _window_max_1d(x, radius: int, axis: int):
     """Sliding max over a (2r+1) window along `axis` by doubling shifts —
-    O(log r) full-array max ops, far cheaper than reduce_window on TPU."""
+    O(log r) full-array max ops instead of a (2r+1)-tap reduce_window."""
     def shift(a, off):
         pad = [(0, 0), (0, 0)]
         if off > 0:

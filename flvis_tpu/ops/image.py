@@ -3,7 +3,7 @@
 These replace the OpenCV primitives the reference leans on
 (cv::buildOpticalFlowPyramid inside calcOpticalFlowPyrLK, cv::equalizeHist at
 /root/reference/src/frontend/f2f_tracking.cpp:127-144) with fixed-shape JAX
-ops that XLA fuses and tiles for the TPU VPU.
+ops that XLA fuses.
 
 Images are single-channel float32 arrays (H, W) in [0, 255].  All sampling
 is clamp-to-edge.
@@ -27,9 +27,9 @@ def _sep_filter(img, kx, ky):
     stacks the stereo pair so both images ride one fused pass.
 
     Implemented as shift-and-add over statically-sliced views rather than
-    lax.conv: single-channel convolutions lower very poorly on TPU (no MXU
-    path), while weighted sums of shifted full-size arrays are pure VPU
-    elementwise work that XLA fuses into a handful of passes.
+    lax.conv: weighted sums of shifted full-size arrays are elementwise
+    work that XLA fuses into a handful of passes, with no single-channel
+    convolution lowering in between.
     """
     rx = int(kx.shape[0]) // 2
     ry = int(ky.shape[0]) // 2
@@ -65,62 +65,13 @@ def build_pyramid(img, num_levels: int):
     return levels
 
 
-@functools.cache
-def _even_sel(n: int):
-    """((n+1)//2, n) 0/1 matrix selecting even indices (x[::2] as a matmul).
-
-    Returns numpy (NOT jnp): a cached jnp constant created under one trace
-    would leak that trace's tracer into the next (UnexpectedTracerError)."""
-    oh = np.arange((n + 1) // 2)[:, None] * 2 == np.arange(n)[None, :]
-    return oh.astype(np.float32)
-
-
-def _decimate2_matmul(b):
-    """x[..., ::2, ::2] as two one-hot selection matmuls.
-
-    A stride-2 slice as a pallas_call INPUT costs a full strided-relayout
-    pass per level boundary (~0.35 ms at 480x752 — the round-4 stride-2
-    fusion-input trap); the MXU selection matmuls are ~free (measured: the
-    3-level kernel pyramid drops 1.07 -> 0.29 ms/frame).  precision=HIGHEST
-    on both operands — single-term one-hot sums are then bit-exact, and the
-    mixed (DEFAULT, HIGHEST) idiom is NOT reliably exact on this contraction
-    layout (measured 0.5-ulp-of-bf16 errors when the data side rides a bf16
-    pass here)."""
-    t = jnp.einsum("...hw,rh->...rw", b, _even_sel(b.shape[-2]),
-                   precision=jax.lax.Precision.HIGHEST)
-    return jnp.einsum("...rw,sw->...rs", t, _even_sel(b.shape[-1]),
-                      precision=jax.lax.Precision.HIGHEST)
-
-
-def build_grad_pyramid(img, num_levels: int, use_kernel: bool | None = None):
+def build_grad_pyramid(img, num_levels: int):
     """Pyramid with per-level Scharr gradients: tuple of (img, gx, gy).
 
     Computed ONCE per frame and reused by every LK pass over that image
-    (temporal track + stereo forward + stereo backward) — the gradient convs
-    are a large share of the frontend's op count otherwise.
-
-    On TPU each level runs through the fused Pallas kernel
-    (ops/pallas/gradpyr.py): gx, gy and pyr_down's 5-tap blur all emit from
-    ONE VMEM-resident copy of the level instead of ~30 shifted-add passes
-    (measured 1.26 -> ~0.4 ms/frame on the tracker's (3, 480, 752) stack,
-    bit-identical taps); the terminal stride-2 decimation stays in XLA
-    (terminal strided slices fuse fine — CLAUDE.md round-4 note).
+    (temporal track + stereo forward + stereo backward).  Leading dims batch
+    (the tracker passes its (3, H, W) stack).
     """
-    if use_kernel is None:
-        use_kernel = jax.default_backend() == "tpu"
-    if use_kernel:
-        from .pallas.gradpyr import grad_blur_pallas
-
-        squeeze = img.ndim == 2
-        level = img[None] if squeeze else img
-        out = []
-        for l in range(num_levels):
-            gx, gy, blur = grad_blur_pallas(level)
-            out.append((level[0], gx[0], gy[0]) if squeeze
-                       else (level, gx, gy))
-            if l + 1 < num_levels:
-                level = _decimate2_matmul(blur)
-        return tuple(out)
     out = []
     level = img
     for l in range(num_levels):
@@ -189,11 +140,10 @@ def extract_patches(img, centers, radius: int):
     Returns:
       (N, S, S) patch values, S = 2*radius+1.
 
-    Implementation note (TPU): one (S+1, S+1) block gather per point via
-    `_gather_blocks` (one-hot selection matmuls on the MXU; dynamic_slice
-    loop on CPU) followed by a 4-tap bilinear blend with per-point
-    fractional weights — NOT an arbitrary per-pixel gather, which is orders
-    of magnitude slower on TPU.  The image is edge-replicate padded by
+    Implementation note: one (S+1, S+1) block gather per point via
+    `_gather_blocks` followed by a 4-tap bilinear blend with per-point
+    fractional weights — not a per-pixel gather for each of the (S+1)²
+    samples.  The image is edge-replicate padded by
     radius+2 first so patches that straddle the border replicate edge
     pixels exactly like per-pixel clamped gathers would.
     """
@@ -221,99 +171,36 @@ def extract_patches(img, centers, radius: int):
     )
 
 
-def _on_tpu() -> bool:
-    try:
-        return jax.default_backend() not in ("cpu",)
-    except Exception:  # pragma: no cover - backend probe never raises in practice
-        return False
-
-
-def extract_patches_int(img, centers, radius: int, exact: bool = True):
+def extract_patches_int(img, centers, radius: int):
     """Integer-centered square patches: like extract_patches but for INTEGER
     pixel centers (e.g. FAST corners) — skips the 4-term bilinear blend and
-    the (S+1, S+1) over-gather entirely, returning (N, S, S) blocks.
-
-    exact=False relaxes the gather matmuls to one bf16 pass per operand
-    (see _gather_blocks_matmul): raw 0-255 intensities are EXACT in bf16
-    (8 significant bits) and blurred values round by ≤0.5 intensity unit —
-    the reference's cv::ORB samples uint8 with no interpolation at all
-    (vo_loopclosing.cpp:243-245), so this is within its own quantization.
-    Keep exact=True for any consumer doing subpixel-sensitive arithmetic.
-    """
+    the (S+1, S+1) over-gather entirely, returning (N, S, S) blocks."""
     h, w = img.shape
     s = 2 * radius + 1
     pad = radius + 1
     imgp = jnp.pad(img, pad, mode="edge")
     xi = jnp.clip(centers[:, 0].astype(jnp.int32), -1, w) - radius + pad
     yi = jnp.clip(centers[:, 1].astype(jnp.int32), -1, h) - radius + pad
-    return _gather_blocks(imgp, xi, yi, s, exact=exact)
+    return _gather_blocks(imgp, xi, yi, s)
 
 
-def _gather_blocks(padded, cx, cy, size: int, exact: bool = True):
+def _gather_blocks(padded, cx, cy, size: int):
     """(N,) int32 padded-space corners → per-point blocks from `padded`
     ((H, W) → (N, size, size); (C, H, W) → (N, C, size, size)).
 
-    TPU: ONE-HOT MATMUL gather — row/column selection matrices built from
-    iota comparisons, contracted on the MXU at asymmetric per-operand
-    precision (exact; see _gather_blocks_matmul).  Measured at 256 points
-    this is ~2x faster
-    than vmap-of-dynamic_slice (248 vs 451 µs standalone) because the
-    dynamic_slice loop is sequenced by the scalar core at ~1.3 µs/slice
-    while the matmuls are dense MXU work, independent of point count.
-    A Pallas per-point-DMA kernel was tried first and abandoned: Mosaic
-    rejects dynamic slices of tiled memrefs at non-lane-aligned offsets and
-    the aligned variant barely beat the XLA loop (ops/pallas/gather.py works
-    in interpret mode and stays under test).
-
-    CPU: vmap of dynamic_slice (matmul gathers are pathological there).
-
-    Callers must pre-clip corners so [corner, corner+size) lies inside
-    `padded` — the one-hot path yields ZERO rows (not clamped slices) when
-    out of range, unlike dynamic_slice.
+    A vmap of dynamic_slice, which XLA lowers to one gather whose work is
+    N·C·size² — independent of the image size.  dynamic_slice clamps a
+    start so the block stays inside `padded`; callers pad and pre-clip so
+    that clamping never triggers.
     """
-    if not _on_tpu():
-        if padded.ndim == 2:
-            return jax.vmap(
-                lambda yy, xx: jax.lax.dynamic_slice(padded, (yy, xx), (size, size))
-            )(cy, cx)
-        c = padded.shape[0]
-        return jax.vmap(
-            lambda yy, xx: jax.lax.dynamic_slice(padded, (0, yy, xx), (c, size, size))
-        )(cy, cx)
-    return _gather_blocks_matmul(padded, cx, cy, size, exact=exact)
-
-
-def _gather_blocks_matmul(padded, cx, cy, size: int, exact: bool = True):
-    """One-hot-matmul block gather (see _gather_blocks).
-
-    Exact, at asymmetric per-operand precision: the 0/1 selection matrices
-    are exactly representable in ONE bf16 pass (DEFAULT), so only the image
-    operand gets the multi-pass f32 decomposition (HIGHEST).  Every output
-    is a sum with exactly one nonzero term, so the result is bit-identical
-    to all-HIGHEST (verified in tools/profile_gather_tiled.py: maxerr 0)
-    while the 3-channel gather runs ~1.6x faster (661 -> 421 us at the
-    frontend's level-0 shapes).  A two-stage row-tile gather was also
-    raced there: 4x fewer MACs but no win — the shallower contraction
-    loses the MXU efficiency the MAC count gains."""
-    hp, wp = padded.shape[-2:]
-    dt = padded.dtype
-    # exact=False drops the image operand to DEFAULT too (ONE bf16 pass on
-    # both sides): each gathered value is then the bf16 rounding of the
-    # pixel (≤0.5 intensity unit for blurred [0,255] data; raw integer
-    # intensities are exact).  Right for consumers with uint8-grade
-    # tolerance (ORB descriptors); wrong for subpixel-iterating ones (LK).
-    data_p = jax.lax.Precision.HIGHEST if exact else jax.lax.Precision.DEFAULT
-    sel_data = (jax.lax.Precision.DEFAULT, data_p)
-    data_sel = (data_p, jax.lax.Precision.DEFAULT)
-    rows = cy[:, None] + jnp.arange(size)[None, :]            # (N, size)
-    cols = cx[:, None] + jnp.arange(size)[None, :]
-    Ry = (rows[:, :, None] == jnp.arange(hp)[None, None, :]).astype(dt)
-    Cx = (cols[:, :, None] == jnp.arange(wp)[None, None, :]).astype(dt)
     if padded.ndim == 2:
-        rw = jnp.einsum("nrh,hw->nrw", Ry, padded, precision=sel_data)
-        return jnp.einsum("nrw,ncw->nrc", rw, Cx, precision=data_sel)
-    rw = jnp.einsum("nrh,khw->nkrw", Ry, padded, precision=sel_data)
-    return jnp.einsum("nkrw,ncw->nkrc", rw, Cx, precision=data_sel)
+        return jax.vmap(
+            lambda yy, xx: jax.lax.dynamic_slice(padded, (yy, xx), (size, size))
+        )(cy, cx)
+    c = padded.shape[0]
+    return jax.vmap(
+        lambda yy, xx: jax.lax.dynamic_slice(padded, (0, yy, xx), (c, size, size))
+    )(cy, cx)
 
 
 def extract_patches_multi(stack, centers, radius: int):
@@ -368,26 +255,23 @@ def extract_windows(img, corners, window: int):
     return wins, jnp.stack([cx, cy], axis=-1)
 
 
-def equalize_hist(img, num_bins: int = 256):
-    """Global histogram equalization (cv::equalizeHist equivalent, used when
-    the YAML blur gate triggers, /root/reference/src/frontend/
-    f2f_tracking.cpp:127-148).
+def equalize_hist(img):
+    """Global 256-bin histogram equalization (cv::equalizeHist equivalent,
+    used when the YAML blur gate triggers, /root/reference/src/frontend/
+    f2f_tracking.cpp:127-148): lut[b] = round(255 · (cdf[b] − cdf_min) /
+    (N − cdf_min)), in integer arithmetic so every device rounds alike.
 
-    TPU note: both the histogram and the LUT application run on one-hot
-    encodings, not scatter-add / gather — per-element scatters and
-    small-table gathers serialize on the scalar core while compare/matmul
-    work is pure VPU/MXU throughput (factorized form below).
+    Both the histogram and the LUT application run on one-hot encodings,
+    not scatter-add / gather: the 256-wide one-hot is factorized into two
+    16-wide ones (bin = 16*hi + lo), so the histogram is ONE matmul
+    (oh_hi^T @ oh_lo, contracted over pixels) and the LUT application a
+    K=16 matmul + masked reduce.  Exact: 0/1 one-hots are exact in bf16,
+    integer counts < 2^24 are exact in the f32 accumulator, and each LUT
+    output is a single nonzero integer term.
 
     The last two dims are the image; leading dims batch with an independent
     histogram each (the tracker stacks the stereo pair into one call)."""
     idx = jnp.clip(img, 0.0, 255.0).astype(jnp.int32)
-    # Factorize the 256-wide one-hot into two 16-wide one-hots
-    # (bin = 16*hi + lo): the histogram becomes ONE MXU matmul
-    # (oh_hi^T @ oh_lo, contraction over pixels) and the LUT application a
-    # K=16 matmul + masked reduce — ~7x less VPU work per pixel than the
-    # 256-wide compare passes (measured 0.69 -> 0.27 ms/frame for the
-    # stereo pair, bit-identical: 0/1 one-hots are exact in bf16 and
-    # integer counts < 2^24 are exact in the f32 accumulator).
     hi = idx >> 4
     lo = idx & 15
     a16 = jnp.arange(16, dtype=jnp.int32)
@@ -395,17 +279,15 @@ def equalize_hist(img, num_bins: int = 256):
     oh_lo = (lo[..., None] == a16).astype(jnp.bfloat16)
     hist2 = jnp.einsum("...hwa,...hwb->...ab", oh_hi, oh_lo,
                        preferred_element_type=jnp.float32)     # (..., 16, 16)
-    hist = hist2.reshape(*hist2.shape[:-2], num_bins)          # hi-major == bin order
-    cdf = jnp.cumsum(hist, axis=-1)
+    hist = hist2.reshape(*hist2.shape[:-2], 256)               # hi-major == bin order
+    cdf = jnp.cumsum(hist.astype(jnp.int32), axis=-1)
     first = jnp.argmax(cdf > 0, axis=-1)[..., None]
     cdf_min = jnp.take_along_axis(cdf, first, axis=-1)         # (..., 1)
-    denom = jnp.maximum(cdf[..., -1:] - cdf_min, 1.0)
-    lut = jnp.clip((cdf - cdf_min) / denom * 255.0, 0.0, 255.0)
-    L = lut.reshape(*lut.shape[:-1], 16, 16)
-    # One bf16 pass on the exact 0/1 side, full precision on the LUT side.
-    t = jnp.einsum("...hwa,...ab->...hwb", oh_hi, L,
-                   precision=(jax.lax.Precision.DEFAULT,
-                              jax.lax.Precision.HIGHEST))
+    denom = jnp.maximum(cdf[..., -1:] - cdf_min, 1)
+    lut = jnp.clip(((cdf - cdf_min) * 255 + denom // 2) // denom, 0, 255)
+    L = lut.astype(jnp.float32).reshape(*lut.shape[:-1], 16, 16)
+    t = jnp.einsum("...hwa,...ab->...hwb", oh_hi.astype(jnp.float32), L,
+                   precision="highest")
     return jnp.sum(t * oh_lo.astype(jnp.float32), axis=-1)
 
 

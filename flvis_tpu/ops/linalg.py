@@ -1,11 +1,11 @@
-"""Closed-form / fixed-iteration small linear algebra for TPU.
+"""Closed-form / fixed-iteration small linear algebra.
 
 jnp.linalg's eigh/svd/lstsq/inv lower to iterative algorithms (QR sweeps,
-Jacobi rotations, blocked LU) that serialize on the TPU scalar core; for
-the tiny fixed-size systems SLAM needs (3×3 covariances, 12-column minimal
-systems, 4×4 quaternion forms) closed-form expressions or statically
-unrolled orthogonalization are orders of magnitude cheaper and fuse into a
-handful of VPU ops.  Every routine here is batched over leading dims and
+Jacobi rotations, blocked LU) run as library calls per batch; for the tiny
+fixed-size systems SLAM needs (3×3 covariances, 12-column minimal systems,
+4×4 quaternion forms) closed-form expressions or statically unrolled
+orthogonalization are elementwise work that fuses into a handful of
+kernels.  Every routine here is batched over leading dims and
 contains no data-dependent control flow.
 
 Replaces the dense-solver roles g2o/OpenCV play in the reference
@@ -72,7 +72,7 @@ def gs_null(A):
     Statically-unrolled CGS2 orthonormalization of the R rows, then the
     best-conditioned residual column of I − QᵀQ — exact null-space
     extraction from batched dots/matmuls (jnp.linalg.eigh/svd of AᵀA lower
-    to iterative eigensolvers on TPU).  Rows that become numerically
+    to iterative eigensolvers).  Rows that become numerically
     dependent are dropped (their q is zeroed), so rank-deficient batches
     return a vector from the larger null space instead of noise."""
     R, C = A.shape[-2], A.shape[-1]
@@ -90,7 +90,7 @@ def gs_null(A):
                                 precision="highest")
     diag = jnp.diagonal(P, axis1=-2, axis2=-1)
     pick = jax.nn.one_hot(jnp.argmax(diag, axis=-1), C, dtype=P.dtype)
-    h = jnp.einsum("...jl,...l->...j", P, pick)
+    h = jnp.einsum("...jl,...l->...j", P, pick, precision="highest")
     return h / jnp.linalg.norm(h, axis=-1, keepdims=True).clip(1e-12)
 
 
@@ -112,74 +112,6 @@ def sym3_inv(H):
         jnp.stack([A02, A12, A22], -1),
     ], -2)
     return adj * idet
-
-
-def spd6_inv(M):
-    """Closed-form inverse of symmetric positive-definite (..., 6, 6) blocks
-    via the 2×2-of-3×3 Schur complement — batched matmuls and the closed-form
-    3×3 inverse, no LU loop."""
-    A = M[..., :3, :3]
-    B = M[..., :3, 3:]
-    D = M[..., 3:, 3:]
-    Ai = sym3_inv(A)
-    AiB = jnp.einsum("...ab,...bc->...ac", Ai, B, precision="highest")
-    S = D - jnp.einsum("...ba,...bc->...ac", B, AiB, precision="highest")
-    Si = sym3_inv(0.5 * (S + jnp.swapaxes(S, -1, -2)))
-    TL = Ai + jnp.einsum("...ab,...bc,...dc->...ad", AiB, Si, AiB,
-                         precision="highest")
-    TR = -jnp.einsum("...ab,...bc->...ac", AiB, Si, precision="highest")
-    top = jnp.concatenate([TL, TR], axis=-1)
-    bot = jnp.concatenate([jnp.swapaxes(TR, -1, -2), Si], axis=-1)
-    return jnp.concatenate([top, bot], axis=-2)
-
-
-def block_spd_solve(S, rhs, bs: int = 6):
-    """Solve S x = rhs for symmetric positive-definite S (N, N) made of
-    (N/bs)² `bs`-sized blocks, by STATICALLY UNROLLED block Gaussian
-    elimination with closed-form 6×6 pivot inverses.
-
-    NOTE (measured): in plain XLA on TPU this LOSES to jnp.linalg.solve for
-    the 60×60 window-BA system (20.1 vs 14.4 ms/keyframe end to end) — the
-    ~110 small stacked matmuls pay more per-op dispatch latency than the LU
-    loop does.  It is kept as the numerically-validated elimination blueprint
-    for a future fused (Pallas) Schur-step kernel, where the unrolled chain
-    becomes straight-line VMEM code, and for CPU use.  No pivoting: the
-    damped Schur complement is SPD by construction.  rhs may be (N,) or
-    (N, K)."""
-    n = S.shape[0]
-    assert n % bs == 0 and bs == 6, "block_spd_solve is specialised to 6"
-    W = n // bs
-    vec = rhs.ndim == 1
-    b = rhs.reshape(n, -1)
-    # Block-row lists keep every slice static so the chain fully unrolls.
-    rows = [[S[i * bs:(i + 1) * bs, j * bs:(j + 1) * bs] for j in range(W)]
-            for i in range(W)]
-    rb = [b[i * bs:(i + 1) * bs] for i in range(W)]
-    hp = dict(precision="highest")
-    dinv = [None] * W
-    for i in range(W):
-        dinv[i] = spd6_inv(rows[i][i])
-        if i + 1 < W:
-            # All sub-diagonal blocks of column i at once: (W-1-i, 6, 6).
-            C = jnp.stack([rows[j][i] for j in range(i + 1, W)])
-            L = jnp.einsum("jab,bc->jac", C, dinv[i], **hp)
-            Srow = jnp.stack(rows[i][i + 1:])                   # (W-1-i, 6, 6)
-            upd = jnp.einsum("jab,kbc->jkac", L, Srow, **hp)
-            rupd = jnp.einsum("jab,bk->jak", L, rb[i], **hp)
-            for j in range(i + 1, W):
-                rb[j] = rb[j] - rupd[j - i - 1]
-                for k in range(i + 1, W):
-                    rows[j][k] = rows[j][k] - upd[j - i - 1, k - i - 1]
-    x = [None] * W
-    for i in range(W - 1, -1, -1):
-        acc = rb[i]
-        if i + 1 < W:
-            Srow = jnp.stack(rows[i][i + 1:])
-            xs = jnp.stack(x[i + 1:])
-            acc = acc - jnp.einsum("kab,kbj->aj", Srow, xs, **hp)
-        x[i] = jnp.einsum("ab,bj->aj", dinv[i], acc, **hp)
-    out = jnp.concatenate(x, axis=0)
-    return out[:, 0] if vec else out
 
 
 def max_eigvec_sym(K, squarings: int = 5, iters: int = 3):
@@ -204,6 +136,6 @@ def max_eigvec_sym(K, squarings: int = 5, iters: int = 3):
     # symmetry planes of the start vector).
     v = v + 1e-3 * jnp.arange(D, dtype=K.dtype)
     for _ in range(iters):
-        v = jnp.einsum("...ij,...j->...i", M, v)
+        v = jnp.einsum("...ij,...j->...i", M, v, precision="highest")
         v = v / jnp.linalg.norm(v, axis=-1, keepdims=True).clip(1e-20)
     return v

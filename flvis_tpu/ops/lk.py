@@ -1,6 +1,6 @@
 """Batched pyramidal Lucas-Kanade optical flow.
 
-TPU-native replacement for cv::calcOpticalFlowPyrLK as used by the
+Array-native replacement for cv::calcOpticalFlowPyrLK as used by the
 reference's temporal tracker (31×31 window, OPTFLOW_USE_INITIAL_FLOW with an
 IMU-projected guess — /root/reference/src/processing/lkorb_tracking.cpp:38-74)
 and its stereo left→right depth tracker
@@ -43,8 +43,7 @@ def _selection(rel, size: int, width: int):
     of the result has weight (1-f) at column floor(rel)+i and f at +i+1 —
     so S @ win (resp. win @ Sᵀ) bilinearly samples `size` consecutive
     rows (columns) at subpixel offset rel.  Replaces per-iteration patch
-    gathers with MXU matmuls (gathers serialize on the scalar core; these
-    are the dominant frontend cost otherwise).
+    gathers with small batched matmuls.
 
     Built as a triangle ("hat") function of the column index — one fused
     relu(1-|c - rel-i|) expression instead of two one-hot compares + blend
@@ -60,10 +59,9 @@ def _selection(rel, size: int, width: int):
 def _track_level(img_prev, grad_x, grad_y, img_next, pts_prev, flow, valid, p: LKParams):
     """One pyramid level of LK. flow is the current displacement estimate.
 
-    TPU design: the per-point search window of img_next is gathered ONCE
-    (one dynamic_slice block per point); every Gauss-Newton iteration then
-    samples the current patch INSIDE that window with bilinear selection
-    matmuls (pure MXU/VPU work, no gathers).  The flow therefore cannot
+    The per-point search window of img_next is gathered ONCE (one block
+    per point); every Gauss-Newton iteration then samples the current patch
+    INSIDE that window with bilinear selection matmuls (no gathers).  The flow therefore cannot
     drift more than `search_margin` px within one level — larger motion is
     the coarser levels' job, matching pyramidal LK semantics.
 
@@ -123,7 +121,8 @@ def _track_level(img_prev, grad_x, grad_y, img_next, pts_prev, flow, valid, p: L
     def gn_step(flow, converged, live):
         cur = sample(flow)
         e = cur.reshape(n, -1) - t_flat
-        b = jnp.einsum("ns,nsk->nk", e, G)               # (N, 2)
+        b = jnp.einsum("ns,nsk->nk", e, G,
+                       precision="highest")              # (N, 2)
         dx = (a22 * b[:, 0] - a12 * b[:, 1]) / det_safe
         dy = (a11 * b[:, 1] - a12 * b[:, 0]) / det_safe
         delta = jnp.stack([-dx, -dy], axis=-1)

@@ -1,7 +1,7 @@
 """Batched ORB features: FAST corners + intensity-centroid orientation +
 rotated BRIEF descriptors.
 
-TPU-native replacement for cv::ORB::detectAndCompute as used by the
+Array-native replacement for cv::ORB::detectAndCompute as used by the
 reference's loop-closing node (1000 features per keyframe,
 /root/reference/src/backend/vo_loopclosing.cpp:243-245) and BFMatcher
 Hamming matching (vo_loopclosing.cpp:603-660).
@@ -9,7 +9,8 @@ Hamming matching (vo_loopclosing.cpp:603-660).
 Design notes (everything fixed-shape, no data-dependent control flow):
   - FAST-9 is evaluated for EVERY pixel at once: the 16 Bresenham-circle
     samples become 16 shifted copies of the image; the "9 contiguous"
-    test is 9 rolled ANDs of the 32-bit doubled mask — pure VPU work.
+    test is 9 rolled ANDs of the 32-bit doubled mask — pure elementwise
+    work that XLA fuses.
   - Orientation uses image moments over a circular patch computed with two
     small convolutions (x- and y-weighted kernels), sampled at keypoints.
   - Descriptors: the 256 BRIEF point pairs are rotated per-keypoint and
@@ -17,7 +18,7 @@ Design notes (everything fixed-shape, no data-dependent control flow):
     (N, 8) uint32 so Hamming distance is XOR + population_count.
   - Matching: packed XOR+popcount for pairwise distance matrices; for
     vocabulary-sized comparisons, unpack_pm1() yields ±1 floats so word
-    assignment runs on the MXU as a plain matmul.
+    assignment runs as a plain matmul.
 """
 
 from __future__ import annotations
@@ -95,13 +96,11 @@ def orientations(img, pts, radius: int | None = None):
     across the two paths.  (OpenCV's IC_Angle uses 15; the centroid is a
     ~530-pixel low-pass statistic either way.)
 
-    Per-keypoint (2r+1)² patches (one block-matmul gather) contracted with
-    the constant disk moment kernels.  The previous formulation — two
-    whole-image 31×31 `lax.conv`s sampled at the keypoints — cost 134 ms at
-    752×480 on TPU (single-channel convolutions have no good TPU lowering,
-    see ops/image._sep_filter); this one is ~0.5 ms for 500 keypoints and
-    bit-identical for keypoints ≥ radius from the border (detection excludes
-    the border)."""
+    Per-keypoint (2r+1)² patches (one block gather) contracted with the
+    constant disk moment kernels — per-keypoint work instead of two
+    whole-image 31×31 convolutions sampled at the keypoints, and
+    bit-identical to them for keypoints ≥ radius from the border (detection
+    excludes the border)."""
     if radius is None:
         radius = _PATCH_R
     patches = imops.extract_patches(img, pts, radius)     # (N, S, S)
@@ -140,14 +139,13 @@ def brief_descriptors(img_blur, pts, angles):
 
     img_blur should be a Gaussian-smoothed image (ORB blurs before BRIEF).
 
-    TPU formulation: one (2r+1)² patch per keypoint (block-matmul gather),
-    then all 512 rotated sample positions evaluated INSIDE the patches with
-    bilinear hat-function selection — a batched (N,512,S)×(N,S,S) matmul for
-    the row interpolation and a lane reduction for the columns.  The previous
-    per-position `bilinear_sample` issued N·512 scattered 4-tap image gathers
-    (~12 ms for 500 keypoints); this runs in ~1-2 ms and matches it to bf16
-    rounding (≲0.5 intensity unit — see brief_from_patches) for keypoints
-    ≥ r from the border (detection excludes them).
+    One (2r+1)² patch per keypoint (block gather), then all 512 rotated
+    sample positions evaluated INSIDE the patches with bilinear
+    hat-function selection — a batched (N,512,S)×(N,S,S) matmul for the row
+    interpolation and a reduction for the columns, instead of N·512
+    scattered 4-tap image gathers.  Matches per-position `bilinear_sample`
+    to bf16 rounding (≲0.5 intensity unit — see brief_from_patches) for
+    keypoints ≥ r from the border (detection excludes them).
     """
     patches = imops.extract_patches(img_blur, pts, _PATCH_R)     # (N, S, S)
     return brief_from_patches(patches, angles)
@@ -190,50 +188,33 @@ def brief_from_patches(patches, angles):
     return jnp.sum(b * weights, axis=-1, dtype=jnp.uint32)  # (N, 8)
 
 
-@functools.partial(jax.jit, static_argnames=("num_features", "threshold",
-                                             "use_kernel"))
-def detect_and_compute(img, num_features: int = 500, threshold: float = 20.0,
-                       use_kernel: bool | None = None):
+def fast_score_nms(img, threshold: float = 20.0, margin: int = 20):
+    """FAST-9 response after 3×3 non-max suppression, zeroed within
+    `margin` pixels of the border (BRIEF patch support), (H, W)."""
+    h, w = img.shape
+    raw = fast_score(img, threshold)
+    pooled = jax.lax.reduce_window(
+        raw, -jnp.inf, jax.lax.max, (3, 3), (1, 1), "SAME"
+    )
+    yy = jnp.arange(h)[:, None]
+    xx = jnp.arange(w)[None, :]
+    ok = ((yy >= margin) & (yy < h - margin)
+          & (xx >= margin) & (xx < w - margin))
+    return jnp.where((raw >= pooled) & ok, raw, 0.0)
+
+
+@functools.partial(jax.jit, static_argnames=("num_features", "threshold"))
+def detect_and_compute(img, num_features: int = 500, threshold: float = 20.0):
     """ORB pipeline: FAST-9 + NMS → top-K by score → orientation → rBRIEF.
 
     Returns (uv (K, 2), desc (K, 8) uint32, valid (K,), angles (K,)).
     Fixed output size with a validity mask — non-corners score 0 and are
-    masked out.  use_kernel routes the FAST response + Gaussian blur
-    through the fused Pallas kernel (ops/pallas/fastblur.py — one VMEM
-    pass instead of ~40 full-image HBM passes); default on TPU.
+    masked out.  Keypoints come in descending score order (exact top-k;
+    ties go to the lower flat index).
     """
-    h, w = img.shape
-    margin = 20
-    if use_kernel is None:
-        use_kernel = jax.default_backend() == "tpu"
-    if use_kernel:
-        # Fused FAST + 3×3 NMS + margin mask + Gaussian blur: one VMEM
-        # pass (ops/pallas/fastblur.py) — the suppressed score comes out
-        # ready for top-k.
-        from .pallas.fastblur import fast_score_nms_blur_pallas
-
-        score, blur = fast_score_nms_blur_pallas(img, threshold, sigma=2.0,
-                                                 margin=margin)
-    else:
-        raw = fast_score(img, threshold)
-        blur = None
-        # 3×3 non-max suppression + border exclusion (BRIEF patch support).
-        pooled = jax.lax.reduce_window(
-            raw, -jnp.inf, jax.lax.max, (3, 3), (1, 1), "SAME"
-        )
-        yy = jnp.arange(h)[:, None]
-        xx = jnp.arange(w)[None, :]
-        ok = ((yy >= margin) & (yy < h - margin)
-              & (xx >= margin) & (xx < w - margin))
-        score = jnp.where((raw >= pooled) & ok, raw, 0.0)
-
-    flat = score.reshape(-1)
-    # Approximate top-k: exact top_k sorts the whole 361k-score vector; the
-    # TPU approx variant (recall ≥ 0.95) is ~2× faster and "the strongest
-    # ~1000 corners, a few swapped at the tail" is exactly as good a
-    # detection set (on CPU backends this lowers to the exact reduction).
-    top_val, top_idx = jax.lax.approx_max_k(flat, num_features,
-                                            recall_target=0.95)
+    w = img.shape[1]
+    score = fast_score_nms(img, threshold)
+    top_val, top_idx = jax.lax.top_k(score.reshape(-1), num_features)
     uv = jnp.stack([(top_idx % w).astype(jnp.float32),
                     (top_idx // w).astype(jnp.float32)], axis=-1)
     valid = top_val > 0.0
@@ -249,32 +230,22 @@ def detect_and_compute(img, num_features: int = 500, threshold: float = 20.0,
     # deviates from the reference's raw-image moments by <1° on textured
     # patches (the centroid is a low-pass statistic already); BRIEF bits
     # are computed on the blurred patch in both formulations.
-    if blur is None:
-        blur = imops.gaussian_blur(img, sigma=2.0, ksize=7)
-    patches = imops.extract_patches_int(blur, uv, _PATCH_R, exact=False)
+    blur = imops.gaussian_blur(img, sigma=2.0, ksize=7)
+    patches = imops.extract_patches_int(blur, uv, _PATCH_R)
     ang = orientations_from_patches(patches)
     desc = brief_from_patches(patches, ang)
     return uv, desc, valid, ang
 
 
 def hamming_matrix(desc_a, desc_b):
-    """(Na, Nb) Hamming distances between packed (·, 8) uint32 descriptors.
-
-    On TPU, large problems route to the fused Pallas MXU kernel
-    (ops/pallas/hamming.py: in-VMEM bit-unpack + matmul — ~3× the XLA
-    popcount path at 512×4096); small problems and other backends use
-    XOR + population_count."""
-    if (jax.default_backend() == "tpu"
-            and desc_a.shape[0] * desc_b.shape[0] >= 128 * 128):
-        from .pallas.hamming import hamming_matrix_pallas
-
-        return hamming_matrix_pallas(desc_a, desc_b)
+    """(Na, Nb) Hamming distances between packed (·, 8) uint32 descriptors:
+    XOR + population_count, summed over the 8 words."""
     x = jnp.bitwise_xor(desc_a[:, None, :], desc_b[None, :, :])
     return jnp.sum(jax.lax.population_count(x), axis=-1).astype(jnp.int32)
 
 
 def unpack_pm1(desc, dtype=jnp.float32):
-    """(N, 8) uint32 → (N, 256) ±1 floats (for MXU matmul comparisons:
+    """(N, 8) uint32 → (N, 256) ±1 floats (for matmul comparisons:
     hamming = (256 − a·b)/2)."""
     shifts = jnp.arange(32, dtype=jnp.uint32)
     bits = (desc[:, :, None] >> shifts[None, None, :]) & jnp.uint32(1)

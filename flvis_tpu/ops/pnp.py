@@ -1,18 +1,18 @@
 """Batched perspective-n-point: EPnP-style minimal solver + masked RANSAC.
 
-TPU-native replacement for cv::solvePnPRansac as used by the reference for
+Array-native replacement for cv::solvePnPRansac as used by the reference for
 loop-closure geometric verification (P3P, 100 iters, reproj 3.0 —
 /root/reference/src/backend/vo_loopclosing.cpp:670) and frame tracking
 without an IMU guess (src/processing/lkorb_tracking.cpp:161-200).
 
-P3P's closed form needs quartic root-finding, which maps poorly to TPU
-(complex eigendecompositions are unsupported).  Instead each minimal sample
+P3P's closed form needs quartic root-finding (complex eigendecompositions),
+which batches poorly.  Instead each minimal sample
 is solved with a linear EPnP variant — 4 control points from a closed-form
 Cholesky spread basis, a CGS2 null-space extraction for the control-point
 camera coordinates, scale from control-point distance consistency, and a
 Horn-quaternion Procrustes fit — all batched closed-form / statically-
-unrolled arithmetic (no eigh/svd: those lower to iterative eigensolvers on
-TPU — see ops.linalg).  All hypotheses are solved AND scored in parallel
+unrolled arithmetic (no eigh/svd: those lower to iterative eigensolvers —
+see ops.linalg).  All hypotheses are solved AND scored in parallel
 (hypothesize-and-verify as one program, like ops.ransac).
 """
 
@@ -91,7 +91,8 @@ def _epnp_minimal(X, xn):
     # Barycentric coordinates: X = Σ α_j C_j with Σ α = 1.
     B = (Cw[:, 1:] - Cw[:, :1]).transpose(0, 2, 1)               # (M, 3, 3)
     B_inv = la.inv3(B + 1e-9 * jnp.eye(3))
-    a123 = jnp.einsum("mij,mkj->mki", B_inv, Xc)                 # (M, K, 3)
+    a123 = jnp.einsum("mij,mkj->mki", B_inv, Xc,
+                      precision="highest")                       # (M, K, 3)
     a0 = 1.0 - jnp.sum(a123, axis=-1, keepdims=True)
     alpha = jnp.concatenate([a0, a123], axis=-1)                 # (M, K, 4)
 
@@ -127,7 +128,8 @@ def _epnp_minimal(X, xn):
     beta = jnp.sum(dw * dv, axis=-1) / jnp.maximum(jnp.sum(dv * dv, axis=-1), 1e-12)
     Cc = Cc * beta[:, None, None]
     # Cheirality: points must be in front — flip if mean z < 0.
-    zmean = jnp.einsum("mki,mk->mi", Cc, jnp.mean(alpha, axis=1))[:, 2]
+    zmean = jnp.einsum("mki,mk->mi", Cc, jnp.mean(alpha, axis=1),
+                       precision="highest")[:, 2]
     Cc = Cc * jnp.where(zmean < 0, -1.0, 1.0)[:, None, None]
 
     q, t = procrustes_quat(Cw, Cc)

@@ -3,7 +3,7 @@
 The reference calls cv::findFundamentalMat(FM_RANSAC) as a consistency gate
 after LK tracking (/root/reference/src/processing/lkorb_tracking.cpp:132-158)
 and cv::solvePnPRansac for pose (lines 161-200) — sequential hypothesize-and-
-verify loops with data-dependent termination.  On TPU, RANSAC is re-cast as a
+verify loops with data-dependent termination.  Here RANSAC is re-cast as a
 fixed grid of hypotheses evaluated in parallel: sample all minimal sets at
 once (masked sampling via random-score top-k so only valid correspondences
 are drawn), solve every minimal problem as one batched linear-algebra op, and
@@ -50,8 +50,7 @@ def _hartley_normalize(pts, valid):
 def _null9(A):
     """Unit null vector of each (8, 9) minimal system, batched: (M, 8, 9) →
     (M, 9) — CGS2 null-space extraction (ops.linalg.gs_null), replacing a
-    batched 9×9 jnp.linalg.eigh that lowered to an iterative eigensolver on
-    TPU and dominated the RANSAC gate's cost."""
+    batched 9×9 jnp.linalg.eigh that lowers to an iterative eigensolver."""
     from . import linalg as la
 
     return la.gs_null(A)
@@ -60,14 +59,14 @@ def _null9(A):
 def _rank2_project(F):
     """Nearest rank-2 matrix: F(I − v₃v₃ᵀ) with v₃ the smallest right
     singular vector, found by shifted power iteration on FᵀF — replaces a
-    batched 3×3 SVD (iterative lowering on TPU)."""
+    batched 3×3 SVD (an iterative lowering)."""
     G = jnp.einsum("mji,mjk->mik", F, F, precision="highest")   # FᵀF, (M,3,3)
     sigma = jnp.trace(G, axis1=-2, axis2=-1)[:, None, None]
     B = sigma * jnp.eye(3) - G
     v = jnp.full((F.shape[0], 3), 1.0 / jnp.sqrt(3.0), F.dtype)
     v = v.at[:, 1].add(1e-3).at[:, 2].add(-2e-3)  # break symmetry
     for _ in range(12):
-        v = jnp.einsum("mij,mj->mi", B, v)
+        v = jnp.einsum("mij,mj->mi", B, v, precision="highest")
         v = v / jnp.linalg.norm(v, axis=-1, keepdims=True).clip(1e-20)
     return F - jnp.einsum("mij,mj,mk->mik", F, v, v, precision="highest")
 
@@ -89,9 +88,10 @@ def sampson_distance(F, p0, p1):
     """Squared Sampson distance. F: (M,3,3), p0/p1: (N,2) → (M,N)."""
     x0 = jnp.concatenate([p0, jnp.ones_like(p0[:, :1])], axis=-1)  # (N,3)
     x1 = jnp.concatenate([p1, jnp.ones_like(p1[:, :1])], axis=-1)
-    Fx0 = jnp.einsum("mij,nj->mni", F, x0)     # (M,N,3)
-    Ftx1 = jnp.einsum("mji,nj->mni", F, x1)
-    num = jnp.einsum("ni,mni->mn", x1, Fx0) ** 2
+    hp = dict(precision="highest")
+    Fx0 = jnp.einsum("mij,nj->mni", F, x0, **hp)     # (M,N,3)
+    Ftx1 = jnp.einsum("mji,nj->mni", F, x1, **hp)
+    num = jnp.einsum("ni,mni->mn", x1, Fx0, **hp) ** 2
     den = Fx0[..., 0] ** 2 + Fx0[..., 1] ** 2 + Ftx1[..., 0] ** 2 + Ftx1[..., 1] ** 2
     return num / jnp.maximum(den, 1e-12)
 
@@ -126,7 +126,8 @@ def fundamental_ransac(key, pts0, pts1, valid, threshold=3.0, num_hypotheses=128
     best = jnp.argmax(counts)
     inliers = inl[best]
     # Denormalize: F_px = T1ᵀ F T0.
-    best_F = T1.T @ F[best] @ T0
+    best_F = jnp.matmul(jnp.matmul(T1.T, F[best], precision="highest"), T0,
+                        precision="highest")
     return inliers, best_F, counts[best]
 
 

@@ -1,18 +1,17 @@
-"""Dense plane-sweep block-matching stereo — regular-grid disparity on TPU.
+"""Dense plane-sweep block-matching stereo — regular-grid disparity.
 
 Replaces the loop node's per-keypoint stereo LK for ORB keypoint depth
 recovery (the reference runs cv::calcOpticalFlowPyrLK left→right on its
 1000 ORB points, /root/reference/src/backend/vo_loopclosing.cpp:262-283).
-Iterative per-point LK is the WRONG shape for TPU at this point count: each
-GN iteration re-gathers 1000 image patches (one-hot matmuls), costing
-~11 ms/frame — linear in N and serial in the iteration chain.  A dense
-plane sweep is the TPU-idiomatic dual: for D candidate disparities, the
-matching cost |L − shift(R, d)| box-filtered over the support window is
-pure full-width VPU work (shift-and-add slices, the ops/image._sep_filter
-idiom — no per-point gathers at all), the winner is an argmin over the
-(D, H, W) volume, and per-keypoint depth becomes a cheap bilinear read of
-the disparity map.  At half resolution with D=64 the whole sweep runs in
-~1 ms and its cost is INDEPENDENT of the keypoint count.
+Iterative per-point LK at this point count re-gathers 1000 image patches
+per Gauss-Newton iteration — linear in N and serial in the iteration
+chain.  A dense plane sweep is the data-parallel dual: for D candidate
+disparities, the matching cost |L − shift(R, d)| box-filtered over the
+support window is full-width elementwise work (shift-and-add slices, the
+ops/image._sep_filter idiom — no per-point gathers at all), the winner is
+an argmin over the (D, H, W) volume, and per-keypoint depth becomes a
+cheap bilinear read of the disparity map.  Its cost is INDEPENDENT of the
+keypoint count.
 
 Accuracy: half-res integer disparity + 3-point parabolic subpixel ≈ ±0.25
 half-res px ≈ ±0.5 full-res px — the same grade as the 31×31 LK it
@@ -37,9 +36,8 @@ def _box2d(vol, radius: int):
     add slices (see image._sep_filter for why not lax.conv).
 
     radius=4 fast path: a 9-tap box factors EXACTLY as a 3-tap sum composed
-    with a 3-tap sum dilated by 3, cutting the VPU adds from 8 to 4 per
-    axis — the sweep's box stage is add-count-bound, not bandwidth-bound
-    (tools/profile_sweep_variants.py).  Edge-replicate padding is applied
+    with a 3-tap sum dilated by 3, cutting the adds from 8 to 4 per
+    axis.  Edge-replicate padding is applied
     up front so the composition matches the single-stage filter everywhere,
     border included."""
     if radius == 4:
@@ -63,9 +61,8 @@ def _box2d(vol, radius: int):
     return imops._sep_filter(vol, k, k)
 
 
-@functools.partial(jax.jit, static_argnames=("d_max", "radius", "use_kernel"))
-def disparity_sweep(img_l, img_r, d_max: int = 64, radius: int = 4,
-                    use_kernel: bool | None = None):
+@functools.partial(jax.jit, static_argnames=("d_max", "radius"))
+def disparity_sweep(img_l, img_r, d_max: int = 64, radius: int = 4):
     """Half-resolution plane-sweep disparity for a rectified pair.
 
     Args:
@@ -73,18 +70,13 @@ def disparity_sweep(img_l, img_r, d_max: int = 64, radius: int = 4,
       d_max: number of candidate integer disparities at HALF resolution
         (covers [0, 2·d_max) full-res disparity).
       radius: box-matching window radius at half resolution.
-      use_kernel: route the volume sweep through the fused Pallas kernel
-        (ops/pallas/sweep.py) — default on TPU for radius 4, where the XLA
-        volume materialization is the whole-ingest bottleneck.
     Returns (disp, valid): FULL-resolution-scale disparity (H/2, W/2) and a
     validity mask (textured, unambiguous, in-range matches).
     """
     # 2×2 mean decimation: cheap anti-alias + halves the sweep volume.
-    # RESHAPE-mean, not stride-2 slices: a[0::2, 0::2]-style gathers became
-    # the single most expensive piece of the whole sweep (~1.05 ms/image —
-    # XLA re-evaluates the strided relayout for every downstream consumer
-    # of the half-res images, i.e. all 64 shifted volume slices), while the
-    # (h2, 2, w2, 2) reshape + mean is one pass (~0.28 ms) and bit-cheap.
+    # RESHAPE-mean, not stride-2 slices: a strided slice feeding all 64
+    # shifted volume slices can be re-evaluated per consumer, while the
+    # (h2, 2, w2, 2) reshape + mean is one pass.
     def half(a):
         h2, w2 = a.shape[0] // 2, a.shape[1] // 2
         a = a[: 2 * h2, : 2 * w2]
@@ -92,15 +84,6 @@ def disparity_sweep(img_l, img_r, d_max: int = 64, radius: int = 4,
 
     L, R = half(img_l), half(img_r)
     Hh, Wh = L.shape
-    if use_kernel is None:
-        use_kernel = jax.default_backend() == "tpu" and radius == 4
-    if use_kernel:
-        from .pallas.sweep import sweep_maps_pallas
-
-        disp_h, _, ok = sweep_maps_pallas(L, R, d_max=d_max, radius=radius)
-        area = float((2 * radius + 1) ** 2)
-        texture = _box2d(jnp.abs(L - imops.box_filter(L, radius)), radius)
-        return 2.0 * disp_h, ok & (texture > 4.0 * area)
     # Cost volume: SAD of L vs R shifted right by d (replicate out-of-range).
     # bf16 halves the volume's HBM traffic — the sweep is bandwidth-bound
     # and SAD winners are separated by whole intensity units, far above
@@ -119,8 +102,8 @@ def disparity_sweep(img_l, img_r, d_max: int = 64, radius: int = 4,
     best = jnp.argmin(cost, axis=0)                       # (Hh, Wh)
     d_idx = jnp.arange(d_max)[:, None, None]
     c_best = jnp.min(cost, axis=0).astype(jnp.float32)
-    # Neighbour costs via one-hot masked reductions — take_along_axis
-    # lowers to a per-pixel gather on TPU and dominated the whole sweep.
+    # Neighbour costs via one-hot masked reductions, which fuse with the
+    # volume read instead of a per-pixel take_along_axis gather.
     db = d_idx - best[None]                               # (D, Hh, Wh)
     zero = jnp.bfloat16(0)
     cm = jnp.sum(jnp.where(db == -1, cost, zero), axis=0,

@@ -6,11 +6,11 @@ contribution of ITS landmarks locally (Hll inversion and back-substitution
 never leave the device), and only the small reduced camera system — (W,6,6)
 partial sums — crosses the interconnect via psum.  Communication per LM
 iteration is O(W²·36) floats regardless of landmark count, so the collective
-rides ICI latency, not bandwidth.
+is bound by interconnect latency, not bandwidth.
 
 The reference's g2o backend is a single-threaded CPU solver
 (/root/reference/src/backend/vo_localmap.cpp:292-319); it has no distributed
-story — this module is where the TPU build goes beyond it.
+story — this module is where this engine goes beyond it.
 """
 
 from __future__ import annotations

@@ -5,7 +5,7 @@ vector and scores a new keyframe against ALL of them in an O(N) loop on one
 CPU thread (/root/reference/src/backend/vo_loopclosing.cpp:421-436) — the
 cost that grows with trajectory length (SURVEY.md §5 "long-context").
 
-TPU-native design: the (K, V) BoW database is row-sharded over a `kf` mesh
+Design: the (K, V) BoW database is row-sharded over a `kf` mesh
 axis ("context parallelism over the map"); scoring one query is an
 embarrassingly-parallel per-shard matvec with NO collective — each device
 scores its own keyframe rows, and only the (K,) score vector (sharded) comes

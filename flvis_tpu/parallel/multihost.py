@@ -1,7 +1,7 @@
 """Multi-host (DCN) distribution: jax.distributed wiring + host-local work.
 
 The reference scales across machines by launching one ROS process per
-sequence by hand (SURVEY.md §2.3); the TPU-native equivalent is JAX
+sequence by hand (SURVEY.md §2.3); the equivalent here is JAX
 multi-process SPMD: every host runs THIS same program, `initialize()` wires
 the processes into one runtime over DCN, and a global mesh spanning all
 hosts' devices carries the `seq` axis.  Each host feeds only the sequences

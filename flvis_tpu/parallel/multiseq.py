@@ -1,8 +1,8 @@
 """Multi-sequence data parallelism: shard independent SLAM runs over devices.
 
-The reference processes one rosbag per process (SURVEY.md §2.3); the
-TPU-native scaling story starts with the embarrassingly-parallel axis —
-"all 11 EuRoC runs sharded across hosts/chips" (BASELINE.json north star).
+The reference processes one rosbag per process (SURVEY.md §2.3); here the
+scaling story starts with the embarrassingly-parallel axis — "all 11
+EuRoC runs sharded across devices" (BASELINE.json north star).
 A batch of independent TrackerStates is laid out with a leading `seq` axis
 sharded over the device mesh; the per-frame step is the vmapped tracker,
 jitted with NamedSharding constraints so XLA keeps every sequence resident
@@ -91,9 +91,8 @@ def track_frames_scan_batch(cfg: FrontendConfig, cams: StereoCamera,
     The full-throughput configuration (the "all EuRoC runs at once" mode):
     no per-frame dispatch, no per-sequence dispatch, no collectives.
     Structured as scan-of-vmap, NOT vmap-of-scan: vmapping a scanned tracker
-    batches the loop carry through gather/scatter lowerings that run ~1000×
-    slower on TPU, while scanning the (already fast) vmapped step keeps each
-    iteration identical to track_frame_batch.
+    batches the loop carry through gather/scatter lowerings, while scanning
+    the vmapped step keeps each iteration identical to track_frame_batch.
 
     Args:
       imgs0/imgs1: (S, T, H, W) stacked frames per sequence.
@@ -124,12 +123,6 @@ def track_frames_scan_batch(cfg: FrontendConfig, cams: StereoCamera,
 # the benched 0.55 keyframe fraction — the price of lockstep batching, paid
 # once per device rather than per sequence.
 # --------------------------------------------------------------------------
-
-
-def _batched_bcfg(bcfg: BackendConfig) -> BackendConfig:
-    # The fused Pallas Schur kernel is written for one window; route the
-    # vmapped windows through the XLA step.
-    return dataclasses.replace(bcfg, pallas_schur=False)
 
 
 def _batched_fcfg(fcfg: FrontendConfig) -> FrontendConfig:
@@ -190,7 +183,6 @@ def system_chunk_batch(fcfg: FrontendConfig, bcfg: BackendConfig, cams,
       ba costs (S, T); with ba_every>1 cost rows are 0 on non-BA frames).
     """
     fcfg = _batched_fcfg(fcfg)
-    bcfg = _batched_bcfg(bcfg)
     null = window_ba.null_correction(bcfg)
     xs = (jnp.swapaxes(imgs0, 0, 1), jnp.swapaxes(imgs1, 0, 1))
 
@@ -277,7 +269,6 @@ def system_chunk_batch_vio(fcfg: FrontendConfig, bcfg: BackendConfig,
     corrections ≤N frames late — the reference's async-feedback contract).
     """
     fcfg = _batched_fcfg(fcfg)
-    bcfg = _batched_bcfg(bcfg)
     null = window_ba.null_correction(bcfg)
     sw = lambda a: jnp.swapaxes(a, 0, 1)
     xs = tuple(map(sw, (imgs0, imgs1, ts, acc, gyro, imu_t, imu_valid)))
@@ -354,14 +345,13 @@ def system_chunk_batch_vio(fcfg: FrontendConfig, bcfg: BackendConfig,
 # GSPMD auto-partitioning of the plain jitted program is NOT: the compiled
 # 2-device partition of system_chunk_batch carried 56 all-gathers and 156
 # all-reduces (XLA replicated/resharded intermediates it could not prove
-# batch-parallel).  Intra-chip those are cheap copies; ACROSS PROCESSES they
-# ride the gloo/DCN backend — the 2-process CPU weak-scaling harness
-# measured every step 3.6× slower from this alone.  shard_map makes the
+# batch-parallel).  On one device those are cheap copies; across devices
+# and processes every step pays them.  shard_map makes the
 # parallelism a construction fact instead of a compiler inference: each
 # shard compiles the single-sequence-block program with ZERO collectives,
-# which is also the right shape for real multi-chip DP (nothing rides ICI
-# in the steady state; the scaling-book recipe's "annotate and let XLA
-# insert collectives" degenerates here to "there are none").
+# which is also the right shape for multi-device DP (no cross-device
+# traffic in the steady state; "annotate and let XLA insert collectives"
+# degenerates here to "there are none").
 # ---------------------------------------------------------------------------
 
 @functools.lru_cache(maxsize=None)

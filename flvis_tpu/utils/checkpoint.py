@@ -2,8 +2,8 @@
 
 The reference has NO state checkpointing — only debug dumps of the
 similarity matrix and g2o graphs to hard-coded home paths
-(/root/reference/src/backend/vo_loopclosing.cpp:439-452,879,887).  The TPU
-build treats map/trajectory persistence as a first-class capability: any
+(/root/reference/src/backend/vo_loopclosing.cpp:439-452,879,887).  This
+engine treats map/trajectory persistence as a first-class capability: any
 jax pytree (TrackerState, WindowState, VioState, ...) round-trips through a
 single .npz via its flattened key paths, with structure checked against a
 template on load.  No pickle — files are plain arrays.

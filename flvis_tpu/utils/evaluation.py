@@ -1,7 +1,7 @@
 """Trajectory evaluation: ATE and RPE with Umeyama alignment.
 
 The reference evaluates offline with the external `evo` toolkit over
-TUM/KITTI text files (/root/reference/results/1_readme:1-3).  The TPU build
+TUM/KITTI text files (/root/reference/results/1_readme:1-3).  This engine
 ships the metrics in-repo so golden-trajectory tests can assert on them:
   - ATE RMSE after SE(3) (optionally Sim(3)) Umeyama alignment — evo_ape.
   - RPE over fixed frame deltas — evo_rpe.

@@ -1,6 +1,6 @@
 """VIMOTION: IMU attitude/position propagation with vision feedback.
 
-TPU-native re-design of the reference's VIMOTION
+Array-native re-design of the reference's VIMOTION
 (/root/reference/src/processing/vi_motion.cpp): a mutex-guarded deque of 400
 MOTION_STATE{pos, vel, q_w_i, imu} entries (vi_motion.h:10-17), a Madgwick
 complementary filter for attitude during init (vi_motion.cpp:34-115) and
@@ -135,11 +135,10 @@ def imu_feed_batch(cfg: VioConfig, state: VioState, acc_batch, gyro_batch, t_bat
     Two paths, selected on the initialized flag:
     - steady state (initialized): `_feed_prop_batch` — everything batchable
       (dt, bias removal, gyro delta quats, accel trust, the velocity and
-      position integrals as cumsums) is vectorized over the packet, and the
-      irreducible sequential attitude recurrence runs as ONE fused Pallas
-      kernel (ops/pallas/imu_chain.py).  The op-by-op sequential chain was
-      op-dispatch bound at ~0.64 ms per 16-sample packet on TPU
-      (tools/profile_imu_parts.py).
+      position integrals as cumsums) is vectorized over the packet, and
+      only the irreducible sequential attitude recurrence
+      (`attitude_chain`) stays serial, as an unrolled chain of small
+      elementwise ops that XLA fuses.
     - during initialization: `_feed_scan` — the faithful per-sample scan,
       which also handles the init→propagation transition mid-packet.
     """
@@ -175,18 +174,37 @@ def _ring_append(state: VioState, valid, rows):
     )
 
 
+def attitude_chain(q0, G, a_unit, c):
+    """Sequential Madgwick attitude chain of one IMU packet:
+
+        q_k = normalize( (q_{k-1} ⊗ G_k) ⊗ exp(c_k · a_k × ĝ(q_{k-1} ⊗ G_k)) )
+
+    q0 (4,) start quaternion; G (P,4) per-sample gyro delta quaternions
+    (identity rows for masked samples); a_unit (P,3) unit accelerometer
+    directions; c (P,) correction gains (0 for masked samples); ĝ is the
+    predicted gravity direction in the IMU frame.  Returns (P,4)
+    quaternions after each sample."""
+    def step(q, xs):
+        g, a, ck = xs
+        qp = so3.mul(q, g)
+        g_pred = so3.rotate(so3.conj(qp), jnp.asarray([0.0, 0.0, 1.0], q.dtype))
+        err = jnp.cross(a, g_pred)
+        q = so3.normalize(so3.mul(qp, so3.exp(err * ck)))
+        return q, q
+
+    _, qs = jax.lax.scan(step, q0, (G, a_unit, c), unroll=True)
+    return qs
+
+
 def _feed_prop_batch(cfg: VioConfig, state: VioState, acc_b, gyro_b, t_b,
                      valid):
     """Steady-state propagation of a whole packet: batched precompute +
-    fused sequential attitude kernel + cumsum integrals.
+    the sequential attitude chain + cumsum integrals.
 
-    Bit-equivalent to the sequential scan given monotonic IMU timestamps
+    Equivalent to the sequential scan given monotonic IMU timestamps
     (always true of a real stream; the drivers and pack_imu_frames feed
-    monotonic suffix-padded packets) up to the kernel's small-angle series
-    for the tiny accel-correction exp (~1e-7 on the quaternion).
+    monotonic suffix-padded packets).
     """
-    from ..ops.pallas.imu_chain import attitude_chain
-
     dtype = state.t.dtype
     g_w = jnp.asarray([0.0, 0.0, -cfg.gravity], dtype)
     j = _latest(state)
@@ -224,10 +242,9 @@ def _feed_scan(cfg: VioConfig, state: VioState, acc_batch, gyro_batch,
 
     Scan carries ONLY the ~20-float integrator state (latest t/q/pos/vel +
     biases + init accumulators); ring rows are emitted as scan outputs and
-    written back with one batched scatter per field.  Carrying the whole
-    400-row ring through the per-sample scan body cost ~59 µs/sample on
-    TPU (0.94 ms/frame at P=16, tools/profile_vio_split.py); this layout
-    makes the scan body pure small-vector arithmetic.
+    written back with one batched scatter per field, so the scan body is
+    pure small-vector arithmetic instead of carrying the whole 400-row
+    ring.
     """
     g_w = jnp.asarray([0.0, 0.0, -cfg.gravity])
     j = _latest(state)
@@ -376,10 +393,9 @@ def correction_from_vision(cfg: VioConfig, state: VioState, t_img, T_c_w_vision:
       the MEAN ring velocity across it (vi_motion.cpp:262-275).
     - Biases move by an IIR toward the instantaneous estimate —
       b ← (1−para_3)·b + gain·est — NOT by integrating the innovation: an
-      integrator walks to its saturation on any systematic innovation (the
-      pre-2026-08-21 implementation did exactly that; measured bias_acc
-      climbing 0.1/rep to ba_sat while the ring velocity diverged 1.6→8 m/s
-      on a 0.6 m/s trajectory, tools/profile_vio_loop_delta).  Norm-clipped
+      integrator walks to its saturation on any systematic innovation (an
+      earlier implementation did exactly that: bias_acc climbed to ba_sat
+      while the ring velocity diverged on a 0.6 m/s trajectory).  Norm-clipped
       at ba_sat/bw_sat, NaN-guarded, skipped when dt ≥ 0.1 s
       (vi_motion.cpp:297-331).
     - Rebase: every state at/after the image time maps through

@@ -1,12 +1,12 @@
 // Native data loader for flvis_tpu.
 //
-// TPU-native equivalent of the reference's ingestion stack (ROS image
+// Native equivalent of the reference's ingestion stack (ROS image
 // transport + cv_bridge + per-nodelet cv::remap rectification,
 // /root/reference/src/frontend/vo_tracking.cpp:174-264, 387-420): a small
 // C++ library that decodes grayscale PNG frames, applies the precomputed
 // stereo-rectification maps, and prefetches ahead of the device pipeline on
 // background threads, so the Python host loop never blocks on disk or
-// decode while the TPU is busy.  Exposed through a C ABI consumed via
+// decode while the accelerator is busy.  Exposed through a C ABI consumed via
 // ctypes (flvis_tpu/io/native_loader.py).
 
 #include <png.h>

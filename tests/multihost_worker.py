@@ -22,9 +22,9 @@ mode "timed": the WEAK-SCALING harness (1 device + 1 sequence per process,
 parent pins each process to its own physical core) — times the steady-state
 DP chunk loop and dumps per-process wall time, so the parent can compute
 aggregate-fps(P processes) / (P × fps(1 process)): the only scaling-
-efficiency evidence obtainable without second-host hardware (BASELINE.md
-§multi-host; the "DCN" is localhost loopback, so it bounds orchestration +
-lockstep losses, not real network).
+efficiency evidence obtainable without second-host hardware (the "DCN" is
+localhost loopback, so it bounds orchestration + lockstep losses, not real
+network).
 """
 
 import sys
@@ -56,7 +56,7 @@ def main():
                           margin=12, lk_radius=7, ransac_hypotheses=32,
                           kf_bootstrap_every=2)
     bcfg = BackendConfig(window_size=4, max_landmarks=128, min_views=2,
-                         iters1=4, iters2=3, pallas_schur=False)
+                         iters1=4, iters2=3)
     mesh = multiseq.make_mesh()            # all 4 GLOBAL devices
     assert mesh.shape["seq"] == 4, mesh.shape
     cam1 = camera.make(200.0, 200.0, 128.0, 96.0, 0.12,
@@ -123,7 +123,7 @@ def timed_main(nproc: int, pid: int, outdir: str):
                           margin=12, lk_radius=7, ransac_hypotheses=32,
                           kf_bootstrap_every=2)
     bcfg = BackendConfig(window_size=4, max_landmarks=128, min_views=2,
-                         iters1=4, iters2=3, pallas_schur=False)
+                         iters1=4, iters2=3)
     mesh = multiseq.make_mesh()
     assert mesh.shape["seq"] == nproc, mesh.shape
     cam1 = camera.make(200.0, 200.0, 128.0, 96.0, 0.12,

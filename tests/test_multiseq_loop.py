@@ -40,7 +40,7 @@ class TestMultiSeqLoop:
                                     per_cell=8, min_distance=12.0, margin=22,
                                     kf_min_trans=0.04, pnp_fallback=False),
             backend=BackendConfig(window_size=5, max_landmarks=256,
-                                  iters1=8, iters2=4, pallas_schur=False),
+                                  iters1=8, iters2=4),
             loop=LoopConfig(max_keyframes=64, num_orb_features=128,
                             vocab_words=128, kf_start=10, kf_dist=8,
                             kf_max_dist=64, nkf_closest=2, min_pts=12,
@@ -126,7 +126,7 @@ class TestMultiSeqLoop:
                                     per_cell=8, min_distance=12.0, margin=22,
                                     kf_min_trans=0.04, pnp_fallback=False),
             backend=BackendConfig(window_size=5, max_landmarks=256,
-                                  iters1=8, iters2=4, pallas_schur=False),
+                                  iters1=8, iters2=4),
             loop=LoopConfig(max_keyframes=64, num_orb_features=128,
                             vocab_words=128, kf_start=10, kf_dist=8,
                             kf_max_dist=64, nkf_closest=2, min_pts=12,

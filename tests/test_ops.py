@@ -42,25 +42,6 @@ class TestImageOps:
         assert p.shape == (1, 15, 15)
         np.testing.assert_allclose(p[0, 7, 7], tex[60, 50], rtol=1e-6)
 
-    def test_gather_blocks_matmul_matches_dynamic_slice(self, tex):
-        # The TPU gather path (one-hot MXU matmuls) must agree exactly with
-        # the CPU dynamic_slice path for in-range corners.
-        rng = np.random.default_rng(5)
-        img = jnp.asarray(tex)
-        size = 13
-        cx = jnp.asarray(rng.integers(0, tex.shape[1] - size, 32), jnp.int32)
-        cy = jnp.asarray(rng.integers(0, tex.shape[0] - size, 32), jnp.int32)
-        ref = np.stack([tex[y:y + size, x:x + size]
-                        for x, y in zip(np.asarray(cx), np.asarray(cy))])
-        got = np.asarray(imops._gather_blocks_matmul(img, cx, cy, size))
-        np.testing.assert_allclose(got, ref, rtol=1e-6)
-        # Multi-channel variant.
-        stack = jnp.stack([img, img * 0.5 + 3.0, img - 1.0])
-        got3 = np.asarray(imops._gather_blocks_matmul(stack, cx, cy, size))
-        ref3 = np.stack([np.asarray(stack)[:, y:y + size, x:x + size]
-                         for x, y in zip(np.asarray(cx), np.asarray(cy))])
-        np.testing.assert_allclose(got3, ref3, rtol=1e-6)
-
     def test_equalize_hist(self, tex):
         eq = np.asarray(imops.equalize_hist(jnp.asarray(tex)))
         cveq = cv2.equalizeHist(tex.astype(np.uint8)).astype(np.float32)
@@ -272,9 +253,8 @@ class TestEqualize:
 
 class TestDisparitySweep:
     """Dense plane-sweep block matching (ops/stereo.py) — the loop node's
-    keypoint-depth source (replaces per-point stereo LK, which costs ~11 ms
-    for 1000 points on TPU vs ~1 ms for the keypoint-count-independent
-    sweep)."""
+    keypoint-depth source (replaces per-point stereo LK over 1000 points
+    with a keypoint-count-independent sweep)."""
 
     def test_constant_disparity_recovered(self, tex):
         from flvis_tpu.ops import stereo
@@ -305,29 +285,6 @@ class TestDisparitySweep:
         assert ok.mean() > 0.7
         assert np.median(np.abs(np.asarray(d)[ok] - true_d)) < 0.3
 
-    def test_pallas_kernel_matches_xla_path(self, tex):
-        """The fused Pallas sweep (interpret mode on CPU) must agree with
-        the XLA formulation: identical validity away from the radius-wide
-        border band (which the kernel marks invalid instead of
-        edge-replicating) and sub-0.05-px disparity agreement (the kernel
-        boxes in f32, the XLA path in bf16)."""
-        from flvis_tpu.ops import stereo
-
-        right = warp_translate(tex, -9.0, 0.0)
-        d_x, v_x = stereo.disparity_sweep(jnp.asarray(tex),
-                                          jnp.asarray(right),
-                                          use_kernel=False)
-        d_k, v_k = stereo.disparity_sweep(jnp.asarray(tex),
-                                          jnp.asarray(right),
-                                          use_kernel=True)
-        v_x, v_k = np.asarray(v_x), np.asarray(v_k)
-        inner = np.zeros_like(v_x)
-        inner[:, 4:-4] = True
-        np.testing.assert_array_equal(v_x[inner], v_k[inner])
-        assert not v_k[~inner].any()          # border band invalidated
-        both = v_x & v_k
-        assert np.abs(np.asarray(d_x) - np.asarray(d_k))[both].max() < 0.05
-
     def test_textureless_region_invalid(self):
         from flvis_tpu.ops import stereo
 
@@ -340,49 +297,3 @@ class TestDisparitySweep:
         v = np.asarray(valid)
         # Flat interior (away from its borders, half-res coords) invalid.
         assert v[35:55, 50:90].mean() < 0.2
-
-
-class TestGradPyrKernel:
-    def test_grad_blur_pallas_matches_sep_filter(self):
-        """The fused Scharr+blur kernel must match scharr_gradients and
-        _sep_filter(_PYR_K): same tap order/weights, pre-padded
-        edge-replicate halo.  On TPU the match is bit-exact (verified on
-        hardware); interpret mode on CPU shows ~1e-5 FMA-contraction
-        jitter vs the fused XLA graph, so compare at tight atol here."""
-        from flvis_tpu.ops.pallas.gradpyr import grad_blur_pallas
-
-        rng = np.random.default_rng(5)
-        stack = jnp.asarray(rng.uniform(0, 255, (2, 100, 150))
-                            .astype(np.float32))
-        gx, gy, blur = grad_blur_pallas(stack, interpret=True)
-        gx_r, gy_r = imops.scharr_gradients(stack)
-        blur_r = imops._sep_filter(stack, imops._PYR_K, imops._PYR_K)
-        np.testing.assert_allclose(np.asarray(gx), np.asarray(gx_r), atol=1e-3)
-        np.testing.assert_allclose(np.asarray(gy), np.asarray(gy_r), atol=1e-3)
-        np.testing.assert_allclose(np.asarray(blur), np.asarray(blur_r), atol=1e-3)
-
-    def test_build_grad_pyramid_kernel_route_matches(self):
-        """build_grad_pyramid(use_kernel=True) — Pallas levels + one-hot
-        matmul decimation — must reproduce the XLA route exactly at every
-        level, for both the (B, H, W) stacked and (H, W) single-image
-        forms."""
-        rng = np.random.default_rng(6)
-        for shape in ((3, 96, 160), (96, 160)):
-            img = jnp.asarray(rng.uniform(0, 255, shape).astype(np.float32))
-            ref = imops.build_grad_pyramid(img, 3, use_kernel=False)
-            new = imops.build_grad_pyramid(img, 3, use_kernel=True)
-            assert len(ref) == len(new) == 3
-            for (ri, rx, ry), (ni, nx, ny) in zip(ref, new):
-                np.testing.assert_allclose(np.asarray(ni), np.asarray(ri),
-                                           atol=1e-3)
-                np.testing.assert_allclose(np.asarray(nx), np.asarray(rx),
-                                           atol=1e-3)
-                np.testing.assert_allclose(np.asarray(ny), np.asarray(ry),
-                                           atol=1e-3)
-
-    def test_decimate2_matmul_is_stride2(self):
-        rng = np.random.default_rng(7)
-        x = jnp.asarray(rng.uniform(0, 255, (2, 37, 53)).astype(np.float32))
-        got = imops._decimate2_matmul(x)
-        np.testing.assert_array_equal(np.asarray(got),
-                                      np.asarray(x[..., ::2, ::2]))

@@ -151,104 +151,3 @@ class TestPnP:
         dt, _ = se3.distance(T, T_true)
         assert float(dt) < 0.02
         assert not np.any(np.asarray(inl)[25:])
-
-
-class TestPallasHamming:
-    def test_matches_popcount_reference(self, rng):
-        """The Pallas MXU kernel (interpret mode on CPU) must agree exactly
-        with the XOR+popcount formulation, including padding edges."""
-        from flvis_tpu.ops.pallas.hamming import hamming_matrix_pallas
-
-        a = jnp.asarray(rng.integers(0, 2**32, (130, 8), dtype=np.uint32))
-        b = jnp.asarray(rng.integers(0, 2**32, (300, 8), dtype=np.uint32))
-        x = jnp.bitwise_xor(a[:, None, :], b[None, :, :])
-        want = jnp.sum(jax.lax.population_count(x), axis=-1).astype(jnp.int32)
-        got = hamming_matrix_pallas(a, b)
-        np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
-
-
-class TestFastBlurKernel:
-    def test_pallas_fastblur_matches_xla(self):
-        """The fused FAST+NMS+blur Pallas kernel (interpret mode on CPU)
-        must bit-match the XLA formulation: fast_score -> 3x3 reduce_window
-        max -> keep-ties + margin mask (the margin covers the border band
-        where roll-wrap vs edge-pad differ), and ops/image.gaussian_blur
-        everywhere."""
-        import jax
-        import jax.numpy as jnp
-
-        from flvis_tpu.ops import image as imops, orb
-        from flvis_tpu.ops.pallas.fastblur import fast_score_nms_blur_pallas
-
-        rng = np.random.default_rng(3)
-        img = jnp.asarray(rng.uniform(0, 255, (120, 200)).astype(np.float32))
-        h, w = img.shape
-        margin = 6
-        raw = orb.fast_score(img, 20.0)
-        pooled = jax.lax.reduce_window(raw, -jnp.inf, jax.lax.max,
-                                       (3, 3), (1, 1), "SAME")
-        yy = jnp.arange(h)[:, None]
-        xx = jnp.arange(w)[None, :]
-        ok = ((yy >= margin) & (yy < h - margin)
-              & (xx >= margin) & (xx < w - margin))
-        s_ref = np.asarray(jnp.where((raw >= pooled) & ok, raw, 0.0))
-        b_ref = np.asarray(imops.gaussian_blur(img, sigma=2.0, ksize=7))
-        s_k, b_k = fast_score_nms_blur_pallas(img, 20.0, margin=margin,
-                                              interpret=True)
-        np.testing.assert_array_equal(np.asarray(b_k), b_ref)
-        np.testing.assert_array_equal(np.asarray(s_k), s_ref)
-        assert (s_ref > 0).sum() > 100               # scenario non-trivial
-
-    def test_detect_and_compute_kernel_route_matches(self):
-        """detect_and_compute(use_kernel=True) in interpret mode returns the
-        same keypoints/descriptors as the XLA route (margin excludes every
-        border pixel where the two FAST formulations differ)."""
-        import jax.numpy as jnp
-
-        from flvis_tpu.ops import orb
-
-        rng = np.random.default_rng(4)
-        img = jnp.asarray(rng.uniform(0, 255, (120, 160)).astype(np.float32))
-        uv_x, d_x, v_x, a_x = orb.detect_and_compute(img, num_features=64,
-                                                     use_kernel=False)
-        import unittest.mock as mock
-        import flvis_tpu.ops.pallas.fastblur as fb
-
-        orig = fb.fast_score_nms_blur_pallas
-        with mock.patch.object(
-                fb, "fast_score_nms_blur_pallas",
-                lambda im, th, sigma=2.0, margin=20: orig(
-                    im, th, sigma=sigma, margin=margin, interpret=True)):
-            uv_k, d_k, v_k, a_k = orb.detect_and_compute(
-                img, num_features=64, use_kernel=True)
-        np.testing.assert_array_equal(np.asarray(v_x), np.asarray(v_k))
-        m = np.asarray(v_x)
-        np.testing.assert_array_equal(np.asarray(uv_x)[m], np.asarray(uv_k)[m])
-        np.testing.assert_array_equal(np.asarray(d_x)[m], np.asarray(d_k)[m])
-
-
-class TestBowAssignKernel:
-    def test_pallas_bow_tf_matches_xla(self):
-        """The fused BoW-assignment kernel (interpret mode) must reproduce
-        bow.transform's term-frequency histogram exactly, including argmax
-        lowest-index tie-breaking and invalid-row masking.  (The kernel is
-        a raced variant kept under test — the XLA path ties it standalone
-        and fuses better inside the ingest scan; see bow.transform.)"""
-        import jax.numpy as jnp
-
-        from flvis_tpu.ops import orb
-        from flvis_tpu.ops.pallas.bowassign import bow_tf_pallas
-
-        rng = np.random.default_rng(5)
-        desc = jnp.asarray(rng.integers(0, 2**32, (300, 8),
-                                        dtype=np.uint64).astype(np.uint32))
-        valid = jnp.asarray(rng.random(300) > 0.15)
-        words = jnp.asarray(np.sign(rng.normal(size=(1024, 256)))
-                            .astype(np.float32))
-        d = orb.unpack_pm1(desc)
-        sim = jnp.where(valid[:, None], d @ words.T, -jnp.inf)
-        assign = jnp.argmax(sim, axis=1)
-        tf_ref = jnp.zeros(1024).at[jnp.where(valid, assign, 1023)].add(
-            jnp.where(valid, 1.0, 0.0))
-        tf_k = bow_tf_pallas(desc, valid, words, interpret=True)
-        np.testing.assert_array_equal(np.asarray(tf_k), np.asarray(tf_ref))

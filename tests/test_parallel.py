@@ -70,7 +70,7 @@ class TestSystemDP:
                               margin=12, lk_radius=7, ransac_hypotheses=32,
                               kf_bootstrap_every=2)
         bcfg = BackendConfig(window_size=4, max_landmarks=128, min_views=2,
-                             iters1=4, iters2=3, pallas_schur=False)
+                             iters1=4, iters2=3)
         mesh = multiseq.make_mesh(S)
         cam1 = camera.make(200.0, 200.0, 128.0, 96.0, 0.12,
                            width=256, height=192)
@@ -136,7 +136,7 @@ class TestSystemDPVio:
                               min_distance=10.0, margin=12, lk_radius=7,
                               ransac_hypotheses=32, kf_bootstrap_every=2)
         bcfg = BackendConfig(window_size=4, max_landmarks=128, min_views=2,
-                             iters1=4, iters2=3, pallas_schur=False)
+                             iters1=4, iters2=3)
         vcfg = VioConfig()
         mesh = multiseq.make_mesh(S)
         cam1 = camera.make(200.0, 200.0, 128.0, 96.0, 0.12,
@@ -215,7 +215,7 @@ class TestSystemDPBaCadence:
                               min_distance=10.0, margin=12, lk_radius=7,
                               ransac_hypotheses=32, kf_bootstrap_every=2)
         bcfg = BackendConfig(window_size=4, max_landmarks=128, min_views=2,
-                             iters1=4, iters2=3, pallas_schur=False)
+                             iters1=4, iters2=3)
         mesh = multiseq.make_mesh(S)
         cam1 = camera.make(200.0, 200.0, 128.0, 96.0, 0.12,
                            width=256, height=192)
@@ -277,7 +277,7 @@ class TestSystemDPBaCadence:
                               min_distance=10.0, margin=12, lk_radius=7,
                               ransac_hypotheses=32, kf_bootstrap_every=2)
         bcfg = BackendConfig(window_size=4, max_landmarks=128, min_views=2,
-                             iters1=4, iters2=3, pallas_schur=False)
+                             iters1=4, iters2=3)
         vcfg = VioConfig()
         mesh = multiseq.make_mesh(S)
         cam1 = camera.make(200.0, 200.0, 128.0, 96.0, 0.12,
@@ -373,7 +373,7 @@ class TestShardedChunk:
                               margin=12, lk_radius=7, ransac_hypotheses=32,
                               kf_bootstrap_every=2)
         bcfg = BackendConfig(window_size=4, max_landmarks=128, min_views=2,
-                             iters1=4, iters2=3, pallas_schur=False)
+                             iters1=4, iters2=3)
         scfg = SceneConfig(width=256, height=192, fx=200.0, fy=200.0,
                            cx=128.0, cy=96.0, baseline=0.12)
         cam = camera.make(200.0, 200.0, 128.0, 96.0, 0.12,
@@ -452,7 +452,7 @@ class TestMultiHost:
                               pyramid_levels=3, per_cell=4, min_distance=10.0,
                               margin=12, lk_radius=7, ransac_hypotheses=32)
         bcfg = BackendConfig(window_size=4, max_landmarks=128, min_views=2,
-                             iters1=4, iters2=3, pallas_schur=False)
+                             iters1=4, iters2=3)
         mesh = multiseq.make_mesh(S)
         cam1 = camera.make(200.0, 200.0, 128.0, 96.0, 0.12,
                            width=256, height=192)

@@ -136,7 +136,7 @@ class TestChunkReplay:
         """loop_device: the whole loop node (store + ingest + gate + PGO)
         lives on a second chip and its programs dispatch there (the
         reference's loop nodelet runs on spare CPU cores; async dispatch to
-        another chip is the TPU equivalent).  Results must match the
+        another device is the equivalent here).  Results must match the
         single-device loop path exactly."""
         import jax
 

@@ -2,7 +2,6 @@
 
 import jax.numpy as jnp
 import numpy as np
-import pytest
 
 from flvis_tpu.config import VioConfig
 from flvis_tpu.geometry import se3, so3
@@ -282,44 +281,3 @@ class TestFastPropBatch:
         st = vimotion.imu_feed_batch(CFG, st, acc, gyro, t)
         assert bool(st.initialized)
         assert int(st.count) == 30                  # every sample ringed
-
-    def test_kernel_interpret_matches_ref(self):
-        """COVERAGE NOTE: CI forces the CPU platform, so this validates the
-        kernel in interpret mode only; a Mosaic lowering rejection or
-        numeric divergence would surface only on a real TPU (covered by the
-        guarded smoke test below when one is attached, and by bench.py's
-        VIO path on every driver round)."""
-        from flvis_tpu.ops.pallas.imu_chain import (attitude_chain_pallas,
-                                                    attitude_chain_ref)
-        rng = np.random.default_rng(5)
-        P = 16
-        q0 = so3.normalize(jnp.asarray(rng.normal(0, 1, 4).astype(np.float32)))
-        G = so3.exp(jnp.asarray(rng.normal(0, 0.01, (P, 3)).astype(np.float32)))
-        a = rng.normal(0, 1, (P, 3))
-        a /= np.linalg.norm(a, axis=1, keepdims=True)
-        a = jnp.asarray(a.astype(np.float32))
-        c = jnp.asarray(rng.uniform(0, 0.003, P).astype(np.float32))
-        ref = attitude_chain_ref(q0, G, a, c)
-        ker = attitude_chain_pallas(q0, G, a, c, interpret=True)
-        np.testing.assert_allclose(np.asarray(ker), np.asarray(ref), atol=1e-6)
-
-    def test_kernel_compiled_matches_ref_on_tpu(self):
-        """Compiled-Mosaic smoke test — runs only when a real TPU is the
-        default backend (skipped in CPU-forced CI)."""
-        import jax
-
-        if jax.default_backend() != "tpu":
-            pytest.skip("no TPU attached")
-        from flvis_tpu.ops.pallas.imu_chain import (attitude_chain_pallas,
-                                                    attitude_chain_ref)
-        rng = np.random.default_rng(6)
-        P = 16
-        q0 = so3.normalize(jnp.asarray(rng.normal(0, 1, 4).astype(np.float32)))
-        G = so3.exp(jnp.asarray(rng.normal(0, 0.01, (P, 3)).astype(np.float32)))
-        a = rng.normal(0, 1, (P, 3))
-        a /= np.linalg.norm(a, axis=1, keepdims=True)
-        a = jnp.asarray(a.astype(np.float32))
-        c = jnp.asarray(rng.uniform(0, 0.003, P).astype(np.float32))
-        ref = attitude_chain_ref(q0, G, a, c)
-        ker = attitude_chain_pallas(q0, G, a, c)
-        np.testing.assert_allclose(np.asarray(ker), np.asarray(ref), atol=1e-5)

@@ -154,89 +154,3 @@ class TestWindowOptimize:
         st = window_ba.add_keyframe(CFG, st, packet(0, pts, rng))
         st = window_ba.reset(CFG, st)
         assert int(st.count) == 0 and int(jnp.sum(st.lm_valid)) == 0
-
-
-class TestPallasSchurParity:
-    def test_kernel_matches_xla_step(self, rng):
-        """The fused Pallas Schur step (interpret mode on CPU) must agree
-        with the XLA op-by-op implementation on a realistic noisy window."""
-        import jax
-
-        from flvis_tpu.ops.pallas.schur import schur_step_kernel
-
-        pts = make_world(rng)
-        st = window_ba.empty(CFG)
-        for i in range(5):
-            p = packet(i, pts, rng, noise=0.5,
-                       pose_noise=0.0 if i == 0 else 0.03, pw_noise=0.15)
-            st = window_ba.add_keyframe(CFG, st, p)
-
-        poses = st.poses()
-        w_mask = st.obs_valid & st.kf_valid[:, None] & st.lm_valid[None, :]
-        fid = jnp.where(st.kf_valid, st.kf_frame_id, jnp.iinfo(jnp.int32).max)
-        fixed = jnp.arange(st.window) == jnp.argmin(fid)
-        ur_valid = st.obs_ur_valid & w_mask
-        lam, delta = 1e-3, 2.0
-
-        # XLA reference step.
-        new_poses, new_lm = window_ba._schur_step(
-            CAM, poses, st.lm_pw, (st.obs_uv, st.obs_ur, ur_valid),
-            w_mask, fixed, lam, delta)
-
-        # Kernel step (interpret mode: backend is cpu).
-        W, L = w_mask.shape
-        R = so3.to_matrix(poses.q).reshape(W, 9)
-        obs3 = jnp.stack([st.obs_uv[..., 0], st.obs_uv[..., 1], st.obs_ur],
-                         axis=1).reshape(3 * W, L)
-        cam_row = jnp.stack([CAM.fx, CAM.fy, CAM.cx, CAM.cy,
-                             CAM.fx * CAM.baseline])
-        dp, dl = schur_step_kernel(
-            R, poses.t, st.lm_pw.T, obs3,
-            ur_valid.astype(jnp.float32), w_mask.astype(jnp.float32),
-            fixed.astype(jnp.float32), cam_row,
-            jnp.asarray(lam, jnp.float32), delta=float(delta))
-        k_poses = se3.retract_left(poses, dp)
-        k_lm = st.lm_pw + dl.T
-
-        np.testing.assert_allclose(np.asarray(k_poses.t),
-                                   np.asarray(new_poses.t), atol=2e-4)
-        np.testing.assert_allclose(np.asarray(k_poses.q),
-                                   np.asarray(new_poses.q), atol=2e-5)
-        live = np.asarray(st.lm_valid)
-        np.testing.assert_allclose(np.asarray(k_lm)[live],
-                                   np.asarray(new_lm)[live], atol=2e-3)
-
-    def test_kernel_step_reduces_cost(self, rng):
-        """Full optimize() with the kernel forced on (interpret) must still
-        converge like the XLA path."""
-        import flvis_tpu.backend.window_ba as wba
-
-        pts = make_world(rng)
-        st = window_ba.empty(CFG)
-        for i in range(5):
-            p = packet(i, pts, rng, pose_noise=0.0 if i == 0 else 0.02,
-                       pw_noise=0.1)
-            st = window_ba.add_keyframe(CFG, st, p)
-
-        orig = wba._schur_kernel_enabled
-        try:
-            # Force the kernel path; on CPU the kernel runs in interpret
-            # mode (its own backend probe is unaffected by this patch).
-            # A DISTINCT BackendConfig is essential: optimize() is jitted
-            # with cfg static, and earlier tests already compiled it for
-            # CFG — the cached XLA-path executable would run regardless of
-            # this patch (jit keys on static args + avals, not globals).
-            cfg_kernel = BackendConfig(
-                window_size=CFG.window_size, max_landmarks=CFG.max_landmarks,
-                min_views=CFG.min_views, iters1=10, iters2=6)
-            wba._schur_kernel_enabled = lambda: True
-            res = window_ba.optimize(cfg_kernel, CAM, st)
-        finally:
-            wba._schur_kernel_enabled = orig
-        assert bool(res.correction.valid)
-        st2 = res.state
-        for slot in range(5):
-            fidx = int(st2.kf_frame_id[slot])
-            T_est = se3.SE3(st2.kf_q[slot], st2.kf_t[slot])
-            dt, dr = se3.distance(T_est, gt_pose(fidx))
-            assert float(dt) < 1e-2 and float(dr) < 5e-3
